@@ -1,4 +1,4 @@
-"""fourdgs — a TPU-native differentiable 2D/3D/4D Gaussian splat rendering framework.
+"""fourdgs — a differentiable 2D/3D/4D Gaussian splat rendering framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 C++/OpenGL renderer `EndMy5uffering/4DGaussianSplatRendering`:
@@ -14,14 +14,14 @@ C++/OpenGL renderer `EndMy5uffering/4DGaussianSplatRendering`:
 Unlike the reference — a single-GPU interactive viewer whose hot loops are GLSL
 shaders plus a CPU sort-key loop (reference `Scenes.h:312-328`) — everything
 here lives on device inside one jit, is differentiable end to end, and scales
-over a TPU mesh.
+over a device mesh.
 
 Layer map (mirrors SURVEY.md section 7):
     core/      camera + transform pytrees (reference Camera.{h,cpp})
     splats/    Gaussian parameterizations & covariance builders (reference Splat.h)
     render/    projection, binning, sorting, compositing, pipeline
                (reference Shader/Splats{2,3,4}D GLSL + GPU_RADIX_SORT)
-    ops/       Pallas TPU kernels for the hot paths
+    ops/       Pallas (Triton) kernels for the hot paths + plain references
     parallel/  mesh construction + sharded rendering / training
     io/        .vdata/.sd parsers (reference VDataParser.h), PNG writer
     scenes/    the 11 demo scene generators (reference Scenes.h)

@@ -1,6 +1,6 @@
 """Pure-functional camera producing view/projection matrices.
 
-TPU-native equivalent of the reference fly camera (`Camera.{h,cpp}`): instead
+Equivalent of the reference fly camera (`Camera.{h,cpp}`): instead
 of a mutable class driven by GLFW input, the camera is an immutable pytree
 whose matrix getters are traceable jnp functions, so a camera (or a batch of
 cameras via vmap) can live inside a jit'd render without host sync.

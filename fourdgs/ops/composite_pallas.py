@@ -1,35 +1,30 @@
-"""Pallas TPU kernel: per-tile ordered alpha compositing.
+"""Per-tile ordered alpha compositing: a Pallas kernel (Triton route) and
+its plain XLA reference.
 
-TPU-native replacement for the reference's fragment shader + fixed-function
-blend (Splat4DFragShader.GLSL + GL_SRC_ALPHA/GL_ONE_MINUS_SRC_ALPHA,
-Application.cpp:137-154). One grid step composites one 8x128-pixel tile.
+Replaces the reference's fragment shader + fixed-function blend
+(Splat4DFragShader.GLSL + GL_SRC_ALPHA/GL_ONE_MINUS_SRC_ALPHA,
+Application.cpp:137-154). The kernel follows the per-tile design of the 3D
+Gaussian Splatting CUDA rasterizer (Kerbl et al., SIGGRAPH 2023): one
+program per (tile, pixel block); every pixel keeps its accumulators in
+registers and blends the tile's depth-ordered splat records front to back,
+one splat at a time, reading each record once; the program stops once every
+pixel of its block is saturated.
 
-Instead of walking splats one by one (a GPU-shader idiom that maps badly to
-the VPU), the kernel processes CHUNK=128 depth-ordered splats at a time,
-fully vectorized: alphas for the whole (chunk x pixel) block are computed on
-the VPU, and the *ordered* blend — normally a serial dependency — becomes a
-log2(CHUNK)-step Hillis-Steele scan in PRODUCT space over (1 - alpha),
-implemented with `pltpu.roll` compare-free shifts along the sublane axis:
-
-    T_excl[i] = T_carry * prod_{j<i} (1 - a_j)
-
-(An MXU formulation — exp(L @ log1m) with L strictly-lower-triangular — was
-measured and REJECTED: Mosaic's log1p/exp are fast approximations whose
-~3e-4 relative error compounds over deep blends; the product-space scan
-reproduces GL's sequential blend arithmetic to ~3e-6 of an f64 reference.
-See KERNELCHECK.json and BASELINE.md.)
-
-Layouts are chosen for Mosaic: per-tile records are (M, F) so a chunk load is
-a (128, F) dynamic-sublane slice; pixels are a flat (1, 1024) lane vector;
-field extraction is a static lane slice of the loaded chunk value.
-
-Gradients: `composite_records` carries a custom VJP whose backward is a
-hand-written Pallas kernel (`_composite_bwd_kernel`): it recomputes the
-per-chunk transmittances from the saved inputs (flash-attention-style
-rematerialisation — nothing per-(splat, pixel) is ever stored to HBM) and
-accumulates exact gradients for every record field and the carry. The XLA
-twin (`_composite_carry_xla`) remains as the cross-check used by the tests
-and validate_kernels.py.
+Gradients: `composite_records` carries a custom VJP whose backward kernel
+follows the same design. With splats front-to-back and per pixel
+    C   = sum_i alpha_i c_i T_i,   A = sum_i alpha_i^2 T_i,
+    T_i = prod_{j<i} (1 - alpha_j),   T_fin = prod_i (1 - alpha_i)
+the cotangents are
+    dL/dalpha_i = T_i [g_C . (c_i - R_C,i) + g_A (2 alpha_i - R_A,i)
+                       - g_T Q_i]
+where R_X,i = sum_{j>i} x_j alpha_j prod_{i<k<j} (1 - alpha_k) blends the
+splats behind i back to front (x = c for C, x = alpha for A) and
+Q_i = prod_{k>i} (1 - alpha_k). The backward first re-walks the forward
+front to back to find where it stopped and its final transmittance, then
+walks back to front from there, recovering T_i = T_{i+1} / (1 - alpha_i)
+and accumulating R and Q by multiplication: nothing is formed as a
+difference of two large sums. `_xla_composite_from_records` is the plain
+reference both are checked against.
 """
 
 from __future__ import annotations
@@ -39,533 +34,306 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-# Pixel-tile shape for the Pallas backend: one VPU register tile, flattened
-# to 1024 lanes inside the kernel.
-PTILE_H = 8
-PTILE_W = 128
-PTILE_P = PTILE_H * PTILE_W
+from fourdgs.ops import interpret_mode
 
-CHUNK = 128  # splats per inner step; matches the MXU systolic dimension
-
-# Record columns (F dimension), padded to a full sublane group.
-_F = 16
+# Record rows (F dimension of the (T, F, M) per-tile record array).
+N_FIELDS = 10
 _C_SX, _C_SY, _C_V0X, _C_V0Y = 0, 1, 2, 3
 _C_IL0, _C_IL1 = 4, 5
 _C_R, _C_G, _C_B, _C_AEFF = 6, 7, 8, 9
 
 ALPHA_MAX = 1.0 - 1e-6
+T_SATURATED = 1e-6   # a block whose every pixel is below this stops early
+STEP = 32            # splats between two early-stop checks
+RESCALE = 2.0 ** 64  # the backward carries T as s * RESCALE**-k
+PIXEL_BLOCK = 256    # pixels per program (power of two dividing the tile)
 
 
 def record_fields(proj, p00, p11, pad_to: int | None = None) -> jax.Array:
-    """(N_FIELDS, N) kernel record field matrix for every projected splat.
+    """(N_FIELDS, N) record field matrix for every projected splat.
 
     a_eff premultiplies color alpha, temporal opacity and the frustum-cull
     flag, so the kernel's alpha is a_eff * exp(-q/2) under the coverage
     clip. Centers are stored in k units (NDC offset over the projection
-    diagonal), matching the kernel's pixel coordinates.
-
-    With pad_to (a multiple of 1024), the matrix is (N_FIELDS, pad_to)
-    with zero tail columns, built by the pack_pallas FUSED record kernel:
-    the five derived rows (center scaling, inverse eigenvalues) are
-    computed inside the pack grid — jnp.stack costs XLA one relayout
-    loop per row at bench scale (~6.6 ms/frame at 10M), and even the
-    repack kernel on pre-built rows pays ~1.6 ms of divide/multiply +
-    relayout fusions materializing them first (round-5 trace)."""
+    diagonal), matching the kernel's pixel coordinates. pad_to appends
+    zero columns up to that width."""
     dtype = proj.mx.dtype
     a_eff = proj.opacity * proj.a * proj.valid.astype(dtype)
-    if pad_to is not None:
-        from fourdgs.ops.pack_pallas import pack_record_fields
-        return pack_record_fields(
-            proj.mx, proj.my, proj.v0x, proj.v0y, proj.l0, proj.l1,
-            proj.r, proj.g, proj.b, a_eff, p00, p11, pad_to)
-    rows = [
-        proj.mx / p00,
-        proj.my / p11,
+    rec = jnp.stack([
+        proj.mx / p00, proj.my / p11,
         proj.v0x, proj.v0y,
         1.0 / proj.l0, 1.0 / proj.l1,
         proj.r, proj.g, proj.b,
         a_eff,
-    ]
-    return jnp.stack(rows, axis=0)                    # (10, N)
-
-
-N_FIELDS = 10
-
-
-def _enc_bf16_pair(hi: jax.Array, lo: jax.Array) -> jax.Array:
-    """Round-to-nearest bf16 of two f32 arrays packed into one f32 word
-    (hi in the top 16 bits). Finite inputs only."""
-    hb = (jax.lax.bitcast_convert_type(hi, jnp.int32) + 0x8000) \
-        & jnp.int32(0xFFFF0000)
-    lb = ((jax.lax.bitcast_convert_type(lo, jnp.int32) + 0x8000) >> 16) \
-        & jnp.int32(0xFFFF)
-    return jax.lax.bitcast_convert_type(hb | lb, jnp.float32)
-
-
-def _dec_bf16_pair(packed: jax.Array):
-    bits = jax.lax.bitcast_convert_type(packed, jnp.int32)
-    hi = jax.lax.bitcast_convert_type(bits & jnp.int32(0xFFFF0000),
-                                      jnp.float32)
-    lo = jax.lax.bitcast_convert_type(bits << 16, jnp.float32)
-    return hi, lo
-
-
-@jax.custom_vjp
-def _gather_records_8row(rec: jax.Array, tile_splat: jax.Array):
-    """rec (10, N) -> gathered (T, 10, M), moving only ONE 32-byte
-    sublane granule per index: a TPU gather fetches whole 8-sublane
-    granules, so the 10-row matrix costs two granules per index (traced
-    5.2-6.8 ms/frame at the 10M bench) while an 8-row encoding — colors
-    and a_eff as round-to-nearest bf16 pairs, geometry untouched f32 —
-    costs one. bf16 color/alpha is BELOW the reference's own output
-    precision (its GL pipeline blends into an 8-bit-per-channel
-    framebuffer, quantizing after EVERY blend; bf16 holds ~3 decimal
-    digits once). The VJP is straight-through (quantization treated as
-    identity): the same scatter-add the plain gather's transpose emits.
-    """
-    return _gather_records_8row_fwd(rec, tile_splat)[0]
-
-
-def _gather_records_8row_fwd(rec, tile_splat):
-    enc = jnp.concatenate([
-        rec[0:6],
-        _enc_bf16_pair(rec[6], rec[7])[None],     # (r, g)
-        _enc_bf16_pair(rec[8], rec[9])[None],     # (b, a_eff)
-    ])                                            # (8, N)
-    g8 = enc[:, tile_splat].transpose(1, 0, 2)    # (T, 8, M)
-    r, g = _dec_bf16_pair(g8[:, 6])
-    b, a = _dec_bf16_pair(g8[:, 7])
-    out = jnp.concatenate(
-        [g8[:, 0:6], r[:, None], g[:, None], b[:, None], a[:, None]],
-        axis=1)                                   # (T, 10, M)
-    return out, (tile_splat, rec.shape)
-
-
-def _gather_records_8row_bwd(res, d_out):
-    tile_splat, rec_shape = res
-    d_rec = jnp.zeros(rec_shape, d_out.dtype).at[
-        :, tile_splat].add(d_out.transpose(1, 0, 2))
-    return d_rec, None
-
-
-_gather_records_8row.defvjp(_gather_records_8row_fwd,
-                            _gather_records_8row_bwd)
+    ], axis=0)                                         # (10, N)
+    if pad_to is not None and pad_to > rec.shape[1]:
+        rec = jnp.pad(rec, ((0, 0), (0, pad_to - rec.shape[1])))
+    return rec
 
 
 def pack_records(proj, tile_splat: jax.Array, tile_live: jax.Array,
-                 p00, p11, rec: jax.Array | None = None,
-                 pack8: bool = False) -> jax.Array:
+                 p00, p11, rec: jax.Array | None = None) -> jax.Array:
     """Gather per-tile splat records into the kernel layout (T, F, M);
-    tile_live additionally zeroes a_eff for dead list entries. `rec`
-    passes a precomputed record_fields matrix (shared with the tail);
-    pack8 gathers through the bf16-color 8-row encoding (halves the
-    gather's granule traffic; see _gather_records_8row)."""
-    dtype = proj.mx.dtype
+    tile_live zeroes a_eff for dead list entries. `rec` passes a
+    precomputed record_fields matrix (shared with the tail)."""
     if rec is None:
         rec = record_fields(proj, p00, p11)
-    # (T, F, M): M rides the 128-aligned lane axis in VMEM, so the kernel's
-    # chunk loads are tile-granular lane slices (the only dynamic-ish slicing
-    # Mosaic lowers cleanly). Gather only the N_FIELDS real rows and pad the
-    # F-dimension AFTER — padding before the gather made the gather move the
-    # 6 zero rows too (37.5% of the pack traffic for nothing).
-    if pack8:
-        gathered = _gather_records_8row(rec, tile_splat)
-    else:
-        gathered = rec[:, tile_splat].transpose(1, 0, 2)  # (T, NF, M)
-    gathered = gathered.at[:, _C_AEFF, :].multiply(tile_live.astype(dtype))
-    t, _, m = gathered.shape
-    return jnp.concatenate(
-        [gathered, jnp.zeros((t, _F - N_FIELDS, m), dtype)], axis=1)
+    gathered = rec[:, tile_splat].transpose(1, 0, 2)   # (T, F, M)
+    return gathered.at[:, _C_AEFF, :].multiply(
+        tile_live.astype(gathered.dtype))
 
 
-def _composite_kernel(counts_ref, rec_ref, kx_ref, ky_ref, carry_ref,
-                      out_ref, tile_idx=None):
-    """One tile. rec (F, M) VMEM; kx/ky (1, P) pixel coords in k units;
-    carry (8, P) accumulators from an earlier (nearer) depth slab
-    (rows r, g, b, a, transmittance; identity = zeros with trans 1);
-    out (8, P): rows r, g, b, a, transmittance, 0, 0, 0. tile_idx
-    overrides the counts index (batched grids pass program_id*B + j)."""
-    t = pl.program_id(0) if tile_idx is None else tile_idx
-    n = counts_ref[t]
-    dtype = out_ref.dtype
-    p = kx_ref.shape[-1]
-
-    kx = kx_ref[:]                       # (1, P)
-    ky = ky_ref[:]
-
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, p), 0)
-
-    n_chunks = jax.lax.div(n + jnp.int32(CHUNK - 1), jnp.int32(CHUNK))
-
-    def body(c, carry):
-        r_acc, g_acc, b_acc, a_acc, trans = carry    # each (1, P)
-        off = pl.multiple_of(c * CHUNK, CHUNK)
-        rec_c = rec_ref[:, pl.ds(off, CHUNK)]        # (F, CHUNK) lane slice
-        rec = jnp.transpose(rec_c)                   # (CHUNK, F)
-
-        sx = rec[:, _C_SX:_C_SX + 1]                 # (CHUNK, 1)
-        sy = rec[:, _C_SY:_C_SY + 1]
-        v0x = rec[:, _C_V0X:_C_V0X + 1]
-        v0y = rec[:, _C_V0Y:_C_V0Y + 1]
-        il0 = rec[:, _C_IL0:_C_IL0 + 1]
-        il1 = rec[:, _C_IL1:_C_IL1 + 1]
-        a_eff = rec[:, _C_AEFF:_C_AEFF + 1]
-
-        dx = kx - sx                                 # (CHUNK, P)
-        dy = ky - sy
-        n0 = (v0x * dx + v0y * dy) * il0
-        n1 = (v0y * dx - v0x * dy) * il1
-        q = 64.0 * (n0 * n0 + n1 * n1)
-        w = jnp.exp(-0.5 * q)
-        cover = (jnp.abs(n0) <= 0.5) & (jnp.abs(n1) <= 0.5) & (w >= 1e-4)
-        alpha = jnp.where(cover, a_eff * w, 0.0)
-        alpha = jnp.minimum(alpha, ALPHA_MAX)
-
-        # Ordered transmittance: exclusive cumulative product of (1 - alpha)
-        # over the chunk via a log2(CHUNK)-step Hillis-Steele scan in
-        # *product* space (no log/exp round trip — Mosaic's log1p is a fast
-        # approximation with ~3e-4 relative error, which visibly biases
-        # long blends; sequential products are exactly GL's arithmetic).
-        one_m = 1.0 - alpha                          # (CHUNK, P)
-        cp = one_m
-        shift = 1
-        while shift < CHUNK:
-            y = pltpu.roll(cp, shift, axis=0)
-            cp = cp * jnp.where(row_ids >= shift, y, 1.0)
-            shift *= 2
-        excl = jnp.where(row_ids >= 1, pltpu.roll(cp, 1, axis=0), 1.0)
-        t_excl = trans * excl
-        wgt = alpha * t_excl
-
-        r_acc = r_acc + jnp.sum(wgt * rec[:, _C_R:_C_R + 1], axis=0, keepdims=True)
-        g_acc = g_acc + jnp.sum(wgt * rec[:, _C_G:_C_G + 1], axis=0, keepdims=True)
-        b_acc = b_acc + jnp.sum(wgt * rec[:, _C_B:_C_B + 1], axis=0, keepdims=True)
-        a_acc = a_acc + jnp.sum(alpha * wgt, axis=0, keepdims=True)
-        trans = trans * cp[CHUNK - 1:CHUNK, :]
-        return r_acc, g_acc, b_acc, a_acc, trans
-
-    init = (carry_ref[0:1, :], carry_ref[1:2, :], carry_ref[2:3, :],
-            carry_ref[3:4, :], carry_ref[4:5, :])
-
-    # Early termination: once every pixel in the tile is opaque
-    # (transmittance below the fragment-discard threshold), remaining chunks
-    # cannot change the image — the TPU analog of the rasterizer's early-out,
-    # and the reason dense scenes (10M-splat cube) stay cheap per tile.
-    def cond(state):
-        c, (_, _, _, _, trans) = state
-        return jnp.logical_and(c < n_chunks, jnp.max(trans) > 1e-6)
-
-    def step(state):
-        c, carry = state
-        return c + 1, body(c, carry)
-
-    _, (r_acc, g_acc, b_acc, a_acc, trans) = jax.lax.while_loop(
-        cond, step, (jnp.int32(0), init))
-
-    out_ref[0:1, :] = r_acc
-    out_ref[1:2, :] = g_acc
-    out_ref[2:3, :] = b_acc
-    out_ref[3:4, :] = a_acc
-    out_ref[4:5, :] = trans
-    out_ref[5:8, :] = jnp.zeros((3, p), dtype)
-
-
-def identity_carry(t_tiles: int, dtype=jnp.float32,
-                   p: int = PTILE_P) -> jax.Array:
+def identity_carry(t_tiles: int, dtype=jnp.float32, p: int = 1024) -> jax.Array:
     """(T, 8, P) carry for the first depth slab: empty accumulators, full
-    transmittance."""
+    transmittance. Rows: r, g, b, a, transmittance, 0, 0, 0."""
     c = jnp.zeros((t_tiles, 8, p), dtype)
     return c.at[:, 4, :].set(1.0)
 
 
-def _composite_pallas_raw(records: jax.Array, counts: jax.Array,
-                          kx: jax.Array, ky: jax.Array,
-                          carry: jax.Array) -> jax.Array:
-    """records (T, F, M), counts (T,), kx/ky (T, 1, P), carry (T, 8, P)
-    -> (T, 8, P)."""
-    t_tiles, f, m = records.shape
-    p = kx.shape[-1]
-    assert f == _F and m % CHUNK == 0 and p % 128 == 0
-    dtype = records.dtype
-
-    # Batch B tiles per grid step: the per-step dispatch/staging overhead
-    # (~2 us) dominated the non-busy tiles of the 10M bench frame (1020
-    # steps; ~45% of cube-scene tiles early-exit immediately). B=4 is a
-    # pure grid re-shape — the kernel loops its unbatched body.
-    b = next(bb for bb in (4, 2, 1) if t_tiles % bb == 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(t_tiles // b,),
-        in_specs=[
-            pl.BlockSpec((b, _F, m), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, 1, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, 1, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, 8, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((b, 8, p), lambda t, c: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-
-    kernel = functools.partial(_squeeze_kernel, _composite_kernel, b)
-    # Off-TPU (tests, CPU sharding dry runs) the kernel runs interpreted;
-    # semantics are identical.
-    interpret = jax.default_backend() != "tpu"
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((t_tiles, 8, p), dtype),
-        interpret=interpret,
-    )(counts, records, kx, ky, carry)
-
-
-def _squeeze_kernel(inner, b, counts_ref, rec_ref, kx_ref, ky_ref,
-                    carry_ref, out_ref):
-    """Adapt (B, ...) blocks to the inner kernel's unbatched view."""
-    for j in range(b):
-        inner(counts_ref, rec_ref.at[j], kx_ref.at[j], ky_ref.at[j],
-              carry_ref.at[j], out_ref.at[j],
-              tile_idx=pl.program_id(0) * b + j)
-
-
 # ---------------------------------------------------------------------------
-# hand-written backward kernel
-# ---------------------------------------------------------------------------
-#
-# With splats front-to-back and per pixel
-#     C   = sum_i alpha_i c_i T_i,   A = sum_i alpha_i^2 T_i,
-#     T_i = prod_{j<i} (1 - alpha_j),   T_fin = prod_i (1 - alpha_i)
-# the cotangents are
-#     dL/dalpha_i = g_C . c_i T_i + g_A 2 alpha_i T_i
-#                   - (g_C . S_C,i + g_A S_A,i + g_T T_fin) / (1 - alpha_i)
-# where S_X,i = sum_{j>i} (contributions of X) are SUFFIX sums. Instead of a
-# reverse walk with a transmittance division ladder (0/0 at saturated
-# pixels), the kernel re-runs the forward walk and uses the prefix-difference
-# identity S_i = total - prefix_incl_i with the totals taken from the saved
-# forward outputs — bitwise-consistent with the forward early exit.
-
-def _incl_scan_sum(x, row_ids):
-    s = x
-    shift = 1
-    while shift < CHUNK:
-        y = pltpu.roll(s, shift, axis=0)
-        s = s + jnp.where(row_ids >= shift, y, 0.0)
-        shift *= 2
-    return s
-
-
-def _composite_bwd_kernel(counts_ref, rec_ref, kx_ref, ky_ref, carry_ref,
-                          fout_ref, g_ref, drec_ref):
-    """One tile backward. rec (F, M); kx/ky (1, P); carry (8, P) incoming
-    accumulators (the forward pass's input); fout (8, P) saved forward
-    outputs; g (8, P) upstream cotangents; drec (F, M) out."""
-    t = pl.program_id(0)
-    n = counts_ref[t]
-    dtype = drec_ref.dtype
-    p = kx_ref.shape[-1]
-
-    kx = kx_ref[:]
-    ky = ky_ref[:]
-    gr = g_ref[0:1, :]
-    gg = g_ref[1:2, :]
-    gb = g_ref[2:3, :]
-    ga = g_ref[3:4, :]
-    gt = g_ref[4:5, :]
-    r_tot = fout_ref[0:1, :]
-    g_tot = fout_ref[1:2, :]
-    b_tot = fout_ref[2:3, :]
-    a_tot = fout_ref[3:4, :]
-    t_fin = fout_ref[4:5, :]
-
-    drec_ref[...] = jnp.zeros(drec_ref.shape, dtype)
-
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, p), 0)
-    gt_tfin = gt * t_fin
-
-    n_chunks = jax.lax.div(n + jnp.int32(CHUNK - 1), jnp.int32(CHUNK))
-
-    def body(c, carry):
-        pref_r, pref_g, pref_b, pref_a, trans = carry   # each (1, P)
-        off = pl.multiple_of(c * CHUNK, CHUNK)
-        rec_c = rec_ref[:, pl.ds(off, CHUNK)]
-        rec = jnp.transpose(rec_c)                      # (CHUNK, F)
-
-        sx = rec[:, _C_SX:_C_SX + 1]
-        sy = rec[:, _C_SY:_C_SY + 1]
-        v0x = rec[:, _C_V0X:_C_V0X + 1]
-        v0y = rec[:, _C_V0Y:_C_V0Y + 1]
-        il0 = rec[:, _C_IL0:_C_IL0 + 1]
-        il1 = rec[:, _C_IL1:_C_IL1 + 1]
-        a_eff = rec[:, _C_AEFF:_C_AEFF + 1]
-        cr = rec[:, _C_R:_C_R + 1]
-        cg = rec[:, _C_G:_C_G + 1]
-        cb = rec[:, _C_B:_C_B + 1]
-
-        # Recompute the forward quantities (identical arithmetic).
-        dx = kx - sx
-        dy = ky - sy
-        e0 = v0x * dx + v0y * dy
-        e1 = v0y * dx - v0x * dy
-        n0 = e0 * il0
-        n1 = e1 * il1
-        q = 64.0 * (n0 * n0 + n1 * n1)
-        w = jnp.exp(-0.5 * q)
-        cover = (jnp.abs(n0) <= 0.5) & (jnp.abs(n1) <= 0.5) & (w >= 1e-4)
-        aw = a_eff * w
-        alpha = jnp.where(cover, aw, 0.0)
-        alpha = jnp.minimum(alpha, ALPHA_MAX)
-
-        one_m = 1.0 - alpha
-        cp = one_m
-        shift = 1
-        while shift < CHUNK:
-            y = pltpu.roll(cp, shift, axis=0)
-            cp = cp * jnp.where(row_ids >= shift, y, 1.0)
-            shift *= 2
-        excl = jnp.where(row_ids >= 1, pltpu.roll(cp, 1, axis=0), 1.0)
-        t_i = trans * excl                              # (CHUNK, P)
-        wgt = alpha * t_i
-
-        # Inclusive prefixes (carry + within-chunk scans).
-        incl_r = pref_r + _incl_scan_sum(wgt * cr, row_ids)
-        incl_g = pref_g + _incl_scan_sum(wgt * cg, row_ids)
-        incl_b = pref_b + _incl_scan_sum(wgt * cb, row_ids)
-        incl_a = pref_a + _incl_scan_sum(alpha * wgt, row_ids)
-
-        num = (gr * (r_tot - incl_r) + gg * (g_tot - incl_g)
-               + gb * (b_tot - incl_b) + ga * (a_tot - incl_a) + gt_tfin)
-        d_alpha = (gr * cr + gg * cg + gb * cb) * t_i \
-            + ga * 2.0 * alpha * t_i - num / one_m
-
-        live = (cover & (aw < ALPHA_MAX)).astype(dtype)
-        d_aw = d_alpha * live
-        d_aeff = jnp.sum(d_aw * w, axis=1, keepdims=True)       # (CHUNK, 1)
-        d_q = d_aw * a_eff * w * (-0.5)
-        dn0 = 128.0 * n0 * d_q
-        dn1 = 128.0 * n1 * d_q
-        d_sx = jnp.sum(-dn0 * v0x * il0 - dn1 * v0y * il1, axis=1, keepdims=True)
-        d_sy = jnp.sum(-dn0 * v0y * il0 + dn1 * v0x * il1, axis=1, keepdims=True)
-        d_v0x = jnp.sum(dn0 * dx * il0 - dn1 * dy * il1, axis=1, keepdims=True)
-        d_v0y = jnp.sum(dn0 * dy * il0 + dn1 * dx * il1, axis=1, keepdims=True)
-        d_il0 = jnp.sum(dn0 * e0, axis=1, keepdims=True)
-        d_il1 = jnp.sum(dn1 * e1, axis=1, keepdims=True)
-        d_cr = jnp.sum(gr * wgt, axis=1, keepdims=True)
-        d_cg = jnp.sum(gg * wgt, axis=1, keepdims=True)
-        d_cb = jnp.sum(gb * wgt, axis=1, keepdims=True)
-
-        zero = jnp.zeros_like(d_cr)
-        d_cols = jnp.concatenate(
-            [d_sx, d_sy, d_v0x, d_v0y, d_il0, d_il1, d_cr, d_cg, d_cb,
-             d_aeff] + [zero] * (_F - 10), axis=1)     # (CHUNK, F)
-        drec_ref[:, pl.ds(off, CHUNK)] = jnp.transpose(d_cols)
-
-        return (incl_r[CHUNK - 1:CHUNK, :], incl_g[CHUNK - 1:CHUNK, :],
-                incl_b[CHUNK - 1:CHUNK, :], incl_a[CHUNK - 1:CHUNK, :],
-                trans * cp[CHUNK - 1:CHUNK, :])
-
-    init = (carry_ref[0:1, :], carry_ref[1:2, :], carry_ref[2:3, :],
-            carry_ref[3:4, :], carry_ref[4:5, :])
-
-    def cond(state):
-        c, (_, _, _, _, trans) = state
-        return jnp.logical_and(c < n_chunks, jnp.max(trans) > 1e-6)
-
-    def step(state):
-        c, carry = state
-        return c + 1, body(c, carry)
-
-    jax.lax.while_loop(cond, step, (jnp.int32(0), init))
-
-
-def _composite_bwd_pallas(records, counts, kx, ky, carry, fwd_out, g):
-    t_tiles, f, m = records.shape
-    p = kx.shape[-1]
-    dtype = records.dtype
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(t_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, _F, m), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, p), lambda t, c: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _F, m), lambda t, c: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-
-    def kernel(counts_ref, rec_ref, kx_ref, ky_ref, carry_ref, fout_ref,
-               g_ref, out_ref):
-        _composite_bwd_kernel(counts_ref, rec_ref.at[0], kx_ref.at[0],
-                              ky_ref.at[0], carry_ref.at[0], fout_ref.at[0],
-                              g_ref.at[0], out_ref.at[0])
-
-    interpret = jax.default_backend() != "tpu"
-    # The backward body holds ~12 live (CHUNK, P) f32 temporaries (recompute
-    # + prefix scans + per-field cotangents); at P=2048 that exceeds the
-    # 16 MiB default scoped-VMEM budget. v5e has headroom above the default;
-    # raise the cap instead of shrinking CHUNK (which would double the
-    # serial chain).
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((t_tiles, _F, m), dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(counts, records, kx, ky, carry, fwd_out, g)
-
-
-# ---------------------------------------------------------------------------
-# differentiable twin + custom VJP
+# Triton kernels
 # ---------------------------------------------------------------------------
 
-def _xla_composite_from_records(records, counts, kx, ky, carry=None):
-    """Mathematically identical XLA composite over the packed (T, F, M)
-    records — the kernel's differentiable cross-check in tests."""
-    t_tiles, f, m = records.shape
-    dtype = records.dtype
-    kxf = kx.reshape(t_tiles, 1, -1)
-    kyf = ky.reshape(t_tiles, 1, -1)
-
-    sx = records[:, _C_SX, :][..., None]
-    sy = records[:, _C_SY, :][..., None]
-    v0x = records[:, _C_V0X, :][..., None]
-    v0y = records[:, _C_V0Y, :][..., None]
-    il0 = records[:, _C_IL0, :][..., None]
-    il1 = records[:, _C_IL1, :][..., None]
-    a_eff = records[:, _C_AEFF, :][..., None]
-
-    dx = kxf - sx
-    dy = kyf - sy
-    n0 = (v0x * dx + v0y * dy) * il0
-    n1 = (v0y * dx - v0x * dy) * il1
+def _splat_alpha(kx, ky, rec):
+    """Per-pixel coverage terms of one splat record (scalars) over a pixel
+    block: (dx, dy, e0, e1, n0, n1, w, cover, aw, alpha)."""
+    sx, sy, v0x, v0y, il0, il1, _, _, _, a_eff = rec
+    dx = kx - sx
+    dy = ky - sy
+    e0 = v0x * dx + v0y * dy
+    e1 = v0y * dx - v0x * dy
+    n0 = e0 * il0
+    n1 = e1 * il1
     q = 64.0 * (n0 * n0 + n1 * n1)
     w = jnp.exp(-0.5 * q)
     cover = (jnp.abs(n0) <= 0.5) & (jnp.abs(n1) <= 0.5) & (w >= 1e-4)
-    alpha = jnp.clip(a_eff * w * cover.astype(dtype), 0.0, ALPHA_MAX)
+    aw = a_eff * w
+    alpha = jnp.minimum(jnp.where(cover, aw, 0.0), ALPHA_MAX)
+    return dx, dy, e0, e1, n0, n1, w, cover, aw, alpha
+
+
+def _walk(n, trans_of, body, state):
+    """Front-to-back walk over splats [0, n) in STEP-sized runs, stopping
+    at a run boundary once every pixel's transmittance is saturated. The
+    forward and backward kernels share it, so both stop at the same splat.
+    Returns (number of splats walked, final state)."""
+    def cond(c_state):
+        c, st = c_state
+        return (c * STEP < n) & (jnp.max(trans_of(st)) > T_SATURATED)
+
+    def run(c_state):
+        c, st = c_state
+        lo = c * STEP
+        return c + 1, jax.lax.fori_loop(lo, jnp.minimum(lo + STEP, n),
+                                        body, st)
+
+    c, state = jax.lax.while_loop(cond, run, (jnp.int32(0), state))
+    return jnp.minimum(c * STEP, n), state
+
+
+def _fwd_kernel(counts_ref, rec_ref, kx_ref, ky_ref, carry_ref, out_ref, *,
+                pblk: int):
+    t = pl.program_id(0)
+    pix = pl.ds(pl.program_id(1) * pblk, pblk)
+    kx = kx_ref[t, 0, pix]
+    ky = ky_ref[t, 0, pix]
+
+    def splat(i, acc):
+        r, g, b, a, trans = acc
+        rec = tuple(rec_ref[t, f, i] for f in range(N_FIELDS))
+        alpha = _splat_alpha(kx, ky, rec)[-1]
+        wgt = alpha * trans
+        return (r + wgt * rec[_C_R], g + wgt * rec[_C_G],
+                b + wgt * rec[_C_B], a + alpha * wgt, trans * (1.0 - alpha))
+
+    _, acc = _walk(counts_ref[t], lambda st: st[4], splat,
+                   tuple(carry_ref[t, c, pix] for c in range(5)))
+    for c in range(5):
+        out_ref[t, c, pix] = acc[c]
+    for c in range(5, 8):
+        out_ref[t, c, pix] = jnp.zeros_like(kx)
+
+
+def _bwd_kernel(counts_ref, rec_ref, kx_ref, ky_ref, carry_ref, g_ref,
+                drec_in_ref, drec_ref, *, pblk: int):
+    """One (tile, pixel block) backward: writes this block's share of the
+    record cotangents into drec[t, block] (zero where never reached).
+    Transmittance is carried as s * RESCALE**-k, so that neither walk
+    loses it to underflow; pixels below RESCALE**-1 contribute nothing."""
+    del drec_in_ref   # aliased with drec_ref: the zero initialisation
+    t = pl.program_id(0)
+    blk = pl.program_id(1)
+    pix = pl.ds(blk * pblk, pblk)
+    kx = kx_ref[t, 0, pix]
+    ky = ky_ref[t, 0, pix]
+    gr, gg, gb, ga, gt = (g_ref[t, c, pix] for c in range(5))
+
+    def rec_of(i):
+        return tuple(rec_ref[t, f, i] for f in range(N_FIELDS))
+
+    def forward(i, st):
+        trans, s, k = st
+        one_m = 1.0 - _splat_alpha(kx, ky, rec_of(i))[-1]
+        s = s * one_m
+        small = s < 1.0 / RESCALE
+        return (trans * one_m, jnp.where(small, s * RESCALE, s),
+                k + small.astype(jnp.int32))
+
+    t_in = carry_ref[t, 4, pix]
+    n_done, (_, s, k) = _walk(counts_ref[t], lambda st: st[0], forward,
+                              (t_in, t_in, jnp.zeros(t_in.shape, jnp.int32)))
+
+    def backward(j, st):
+        s, k, rr, rg, rb, ra, q = st
+        i = n_done - 1 - j
+        rec = rec_of(i)
+        v0x, v0y, il0, il1 = rec[_C_V0X], rec[_C_V0Y], rec[_C_IL0], rec[_C_IL1]
+        cr, cg, cb, a_eff = rec[_C_R], rec[_C_G], rec[_C_B], rec[_C_AEFF]
+        dx, dy, e0, e1, n0, n1, w, cover, aw, alpha = _splat_alpha(kx, ky,
+                                                                   rec)
+        one_m = 1.0 - alpha
+        s = s / one_m
+        big = (k > 0) & (s >= 1.0)
+        s = jnp.where(big, s * (1.0 / RESCALE), s)
+        k = k - big.astype(jnp.int32)
+        trans = jnp.where(k == 0, s, 0.0)                 # T_i
+        wgt = alpha * trans
+        d_alpha = trans * (gr * (cr - rr) + gg * (cg - rg) + gb * (cb - rb)
+                           + ga * (2.0 * alpha - ra) - gt * q)
+        d_aw = jnp.where(cover & (aw < ALPHA_MAX), d_alpha, 0.0)
+        d_q = d_aw * a_eff * w * (-0.5)
+        dn0 = 128.0 * n0 * d_q
+        dn1 = 128.0 * n1 * d_q
+        d = (jnp.sum(-dn0 * v0x * il0 - dn1 * v0y * il1),
+             jnp.sum(-dn0 * v0y * il0 + dn1 * v0x * il1),
+             jnp.sum(dn0 * dx * il0 - dn1 * dy * il1),
+             jnp.sum(dn0 * dy * il0 + dn1 * dx * il1),
+             jnp.sum(dn0 * e0),
+             jnp.sum(dn1 * e1),
+             jnp.sum(gr * wgt),
+             jnp.sum(gg * wgt),
+             jnp.sum(gb * wgt),
+             jnp.sum(d_aw * w))
+        for f in range(N_FIELDS):
+            drec_ref[t, blk, f, i] = d[f]
+        return (s, k, alpha * cr + one_m * rr, alpha * cg + one_m * rg,
+                alpha * cb + one_m * rb, alpha * alpha + one_m * ra,
+                one_m * q)
+
+    zero = jnp.zeros_like(kx)
+    jax.lax.fori_loop(0, n_done, backward,
+                      (s, k, zero, zero, zero, zero, zero + 1.0))
+
+
+def _pixel_block(p: int) -> int:
+    pblk = min(p, PIXEL_BLOCK)
+    assert p % pblk == 0 and pblk & (pblk - 1) == 0, (
+        f"tile of {p} pixels: the Triton compositor needs a power-of-two "
+        f"pixel block dividing the tile")
+    return pblk
+
+
+def _params(pblk: int):
+    return plt.CompilerParams(num_warps=max(1, min(8, pblk // 64)),
+                              num_stages=1)
+
+
+def _composite_fwd_triton(records, counts, kx, ky, carry):
+    """records (T, F, M), counts (T,), kx/ky (T, 1, P), carry (T, 8, P)
+    -> (T, 8, P)."""
+    t_tiles = records.shape[0]
+    p = kx.shape[-1]
+    pblk = _pixel_block(p)
+    return pl.pallas_call(
+        functools.partial(_fwd_kernel, pblk=pblk),
+        grid=(t_tiles, p // pblk),
+        out_shape=jax.ShapeDtypeStruct((t_tiles, 8, p), records.dtype),
+        backend="triton", compiler_params=_params(pblk),
+        interpret=interpret_mode(), name="composite_fwd",
+    )(counts, records, kx, ky, carry)
+
+
+def _composite_bwd_triton(records, counts, kx, ky, carry, g):
+    t_tiles, f, m = records.shape
+    p = kx.shape[-1]
+    pblk = _pixel_block(p)
+    nblk = p // pblk
+    zeros = jnp.zeros((t_tiles, nblk, f, m), records.dtype)
+    part = pl.pallas_call(
+        functools.partial(_bwd_kernel, pblk=pblk),
+        grid=(t_tiles, nblk),
+        out_shape=jax.ShapeDtypeStruct(zeros.shape, zeros.dtype),
+        input_output_aliases={6: 0},
+        backend="triton", compiler_params=_params(pblk),
+        interpret=interpret_mode(), name="composite_bwd",
+    )(counts, records, kx, ky, carry, g, zeros)
+    return jnp.sum(part, axis=1)
+
+
+@jax.custom_vjp
+def _composite_triton(records, counts, kx, ky, carry):
+    return _composite_fwd_triton(records, counts, kx, ky, carry)
+
+
+def _composite_triton_fwd(records, counts, kx, ky, carry):
+    out = _composite_fwd_triton(records, counts, kx, ky, carry)
+    return out, (records, counts, kx, ky, carry, out)
+
+
+def _composite_triton_bwd(res, g):
+    records, counts, kx, ky, carry, fwd_out = res
+    d_records = _composite_bwd_triton(records, counts, kx, ky, carry, g)
+    # Cotangent w.r.t. the incoming carry (closed form): rgb/a accumulators
+    # pass through additively (d = g); every contribution and trans_out
+    # scale with trans_in, so d_trans_in = [g . (out - carry parts)] /
+    # trans_in.
+    trans_in = carry[:, 4:5, :]
+    num = (jnp.sum(g[:, 0:4, :] * (fwd_out[:, 0:4, :] - carry[:, 0:4, :]),
+                   axis=1, keepdims=True)
+           + g[:, 4:5, :] * fwd_out[:, 4:5, :])
+    d_trans = jnp.where(trans_in > 0.0,
+                        num / jnp.maximum(trans_in, 1e-30), 0.0)
+    d_carry = jnp.concatenate(
+        [g[:, 0:4, :], d_trans, jnp.zeros_like(g[:, 5:8, :])], axis=1)
+    return d_records, None, None, None, d_carry
+
+
+_composite_triton.defvjp(_composite_triton_fwd, _composite_triton_bwd)
+
+
+# ---------------------------------------------------------------------------
+# plain reference
+# ---------------------------------------------------------------------------
+
+def _xla_composite_from_records(records, counts, kx, ky, carry=None):
+    """Plain XLA composite over the packed (T, F, M) records: the reference
+    the kernel is checked against, differentiable by autodiff. Entries past
+    `counts` must carry a_eff 0 (pack_records guarantees it)."""
+    del counts
+    t_tiles = records.shape[0]
+    dtype = records.dtype
+    kxf = kx.reshape(t_tiles, 1, -1)
+    kyf = ky.reshape(t_tiles, 1, -1)
+    col = lambda c: records[:, c, :][..., None]          # noqa: E731
+
+    dx = kxf - col(_C_SX)
+    dy = kyf - col(_C_SY)
+    n0 = (col(_C_V0X) * dx + col(_C_V0Y) * dy) * col(_C_IL0)
+    n1 = (col(_C_V0Y) * dx - col(_C_V0X) * dy) * col(_C_IL1)
+    q = 64.0 * (n0 * n0 + n1 * n1)
+    w = jnp.exp(-0.5 * q)
+    cover = (jnp.abs(n0) <= 0.5) & (jnp.abs(n1) <= 0.5) & (w >= 1e-4)
+    alpha = jnp.clip(col(_C_AEFF) * w * cover.astype(dtype), 0.0, ALPHA_MAX)
     log1m = jnp.log1p(-alpha)
     t_excl = jnp.exp(jnp.cumsum(log1m, axis=1) - log1m)
     wgt = alpha * t_excl                                  # (T, M, P)
     if carry is not None:
         wgt = wgt * carry[:, 4:5, :].reshape(t_tiles, 1, -1)
     rgb = jnp.einsum("tmp,tcm->tcp", wgt, records[:, _C_R:_C_B + 1, :],
-                     preferred_element_type=dtype)        # (T, 3, P)
+                     preferred_element_type=dtype,
+                     precision=jax.lax.Precision.HIGHEST)  # (T, 3, P)
     a_out = jnp.sum(alpha * wgt, axis=1)
     trans = jnp.exp(jnp.sum(log1m, axis=1))
     out = jnp.concatenate([
@@ -573,153 +341,18 @@ def _xla_composite_from_records(records, counts, kx, ky, carry=None):
         jnp.zeros((t_tiles, 3, rgb.shape[-1]), dtype)], axis=1)
     if carry is not None:
         out = out.at[:, 0:4, :].add(carry[:, 0:4, :].reshape(t_tiles, 4, -1))
-        out = out.at[:, 4:5, :].multiply(carry[:, 4:5, :].reshape(t_tiles, 1, -1))
+        out = out.at[:, 4:5, :].multiply(
+            carry[:, 4:5, :].reshape(t_tiles, 1, -1))
     return out
 
 
-@jax.custom_vjp
-def composite_records(records, counts, kx, ky, carry):
+def composite_records(records, counts, kx, ky, carry, impl: str = "triton"):
     """(T, F, M) records + (T, 8, P) carry -> (T, 8, P): rows r, g, b, a,
     transmittance. carry holds accumulators of an earlier (nearer) depth
-    slab; use identity_carry() for the first slab."""
-    return _composite_pallas_raw(records, counts, kx, ky, carry)
+    slab; use identity_carry() for the first slab. impl "triton" runs the
+    kernel (custom VJP), "xla" the plain reference."""
+    if impl == "xla":
+        return _xla_composite_from_records(records, counts, kx, ky, carry)
+    assert impl == "triton", impl
+    return _composite_triton(records, counts, kx, ky, carry)
 
-
-def _composite_fwd(records, counts, kx, ky, carry):
-    out = _composite_pallas_raw(records, counts, kx, ky, carry)
-    return out, (records, counts, kx, ky, carry, out)
-
-
-def _composite_bwd(res, g):
-    records, counts, kx, ky, carry, fwd_out = res
-    d_records = _composite_bwd_pallas(records, counts, kx, ky, carry,
-                                      fwd_out, g)
-    # Cotangent w.r.t. the incoming carry (cheap, closed form):
-    #   rgb/a accumulators pass through additively -> d = g directly;
-    #   every contribution and trans_out scale with trans_in ->
-    #   d_trans_in = [g . (out - carry-through parts)] / trans_in.
-    trans_in = carry[:, 4:5, :]
-    num = (jnp.sum(g[:, 0:4, :] * (fwd_out[:, 0:4, :] - carry[:, 0:4, :]),
-                   axis=1, keepdims=True)
-           + g[:, 4:5, :] * fwd_out[:, 4:5, :])
-    d_trans = jnp.where(trans_in > 0.0, num / jnp.maximum(trans_in, 1e-30), 0.0)
-    d_carry = jnp.concatenate(
-        [g[:, 0:4, :], d_trans, jnp.zeros_like(g[:, 5:8, :])], axis=1)
-    return d_records, None, None, None, d_carry
-
-
-composite_records.defvjp(_composite_fwd, _composite_bwd)
-
-
-def _composite_pallas_at_raw(records_sel, counts_sel, sel, kx_full, ky_full,
-                             carry_full):
-    """Composite `records_sel[i]` into carry block `sel[i]` IN PLACE.
-
-    The deepening passes previously moved the (T, 8, P) carry through XLA
-    gather (`out[sel]`) and scatter (`out.at[sel].set`) — ~5.7M elements
-    each way per pass at the 10M bench. Here the pallas grid itself
-    addresses the selected tiles: scalar-prefetched `sel` drives the
-    carry/pixel block index maps, the output aliases the carry buffer, and
-    unvisited blocks keep their data (donation semantics). `sel` entries
-    must be distinct; inactive fillers (counts 0) write the carry back
-    unchanged."""
-    ts, f, m = records_sel.shape
-    t_tiles = carry_full.shape[0]
-    p = kx_full.shape[-1]
-    assert f == _F and m % CHUNK == 0 and p % 128 == 0
-    dtype = records_sel.dtype
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,              # counts_sel, sel
-        grid=(ts,),
-        in_specs=[
-            pl.BlockSpec((1, _F, m), lambda t, c, s: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, p), lambda t, c, s: (s[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, p), lambda t, c, s: (s[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, p), lambda t, c, s: (s[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 8, p), lambda t, c, s: (s[t], 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    def kernel(counts_ref, sel_ref, rec_ref, kx_ref, ky_ref, carry_ref,
-               out_ref):
-        _composite_kernel(counts_ref, rec_ref.at[0], kx_ref.at[0],
-                          ky_ref.at[0], carry_ref.at[0], out_ref.at[0])
-
-    interpret = jax.default_backend() != "tpu"
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((t_tiles, 8, p), dtype),
-        # operand order: (counts_sel, sel, records, kx, ky, carry) — the
-        # carry (index 5, counting the scalar-prefetch operands) aliases
-        # the output so unvisited tiles pass through untouched.
-        input_output_aliases={5: 0},
-        interpret=interpret,
-    )(counts_sel, sel, records_sel, kx_full, ky_full, carry_full)
-
-
-@jax.custom_vjp
-def composite_records_at(records_sel, counts_sel, sel, kx_full, ky_full,
-                         carry_full):
-    """Scatter-free deepening step: composite the selected tiles' records
-    into their carry blocks, returning the full updated (T, 8, P) carry."""
-    return _composite_pallas_at_raw(records_sel, counts_sel, sel, kx_full,
-                                    ky_full, carry_full)
-
-
-def _composite_at_fwd(records_sel, counts_sel, sel, kx_full, ky_full,
-                      carry_full):
-    # Residuals gather the selected blocks (only paid under
-    # differentiation; the primal path stays gather/scatter-free).
-    carry_sel = carry_full[sel]
-    out_full = _composite_pallas_at_raw(records_sel, counts_sel, sel,
-                                        kx_full, ky_full, carry_full)
-    return out_full, (records_sel, counts_sel, sel, kx_full, ky_full,
-                      carry_sel, out_full[sel])
-
-
-def _composite_at_bwd(res, g_full):
-    records_sel, counts_sel, sel, kx_full, ky_full, carry_sel, out_sel = res
-    g_sel = g_full[sel]
-    d_records = _composite_bwd_pallas(records_sel, counts_sel,
-                                      kx_full[sel], ky_full[sel],
-                                      carry_sel, out_sel, g_sel)
-    trans_in = carry_sel[:, 4:5, :]
-    num = (jnp.sum(g_sel[:, 0:4, :]
-                   * (out_sel[:, 0:4, :] - carry_sel[:, 0:4, :]),
-                   axis=1, keepdims=True)
-           + g_sel[:, 4:5, :] * out_sel[:, 4:5, :])
-    d_trans = jnp.where(trans_in > 0.0,
-                        num / jnp.maximum(trans_in, 1e-30), 0.0)
-    d_carry_sel = jnp.concatenate(
-        [g_sel[:, 0:4, :], d_trans, jnp.zeros_like(g_sel[:, 5:8, :])],
-        axis=1)
-    # Unselected tiles pass the carry through identically: d_carry = g.
-    d_carry_full = g_full.at[sel].set(d_carry_sel)
-    return d_records, None, None, None, None, d_carry_full
-
-
-composite_records_at.defvjp(_composite_at_fwd, _composite_at_bwd)
-
-
-def composite_tiles_pallas(proj, tile_splat, tile_live, px, py, p00, p11,
-                           background, cfg) -> jax.Array:
-    """Drop-in replacement for the XLA tiled compositor: returns (T, P, 4)."""
-    t_tiles, p = px.shape
-    assert p == cfg.tile_h * cfg.tile_w and p % 128 == 0, (
-        "pallas backend needs tile_h * tile_w to be a multiple of 128 "
-        "(lane width); 8x128 / 16x128 / 32x128 are the tuned shapes")
-    records = pack_records(proj, tile_splat, tile_live, p00, p11)
-    counts = jnp.sum(tile_live, axis=1).astype(jnp.int32)
-    kx = (px / p00).reshape(t_tiles, 1, p)
-    ky = (py / p11).reshape(t_tiles, 1, p)
-    out = composite_records(records, counts, kx, ky,
-                            identity_carry(t_tiles, px.dtype, p))  # (T, 8, P)
-    rgb = out[:, 0:3, :] + out[:, 4:5, :] * background[:3, None]
-    a = out[:, 3, :] + out[:, 4, :] * background[3]
-    return jnp.concatenate([rgb, a[:, None, :]], axis=1).transpose(0, 2, 1)

@@ -7,7 +7,7 @@ GPU. Here:
 
   * splat parameters are sharded over the "data" axis (each device projects
     its shard — the parameter-heavy stage),
-  * compact projected records are all-gathered over "data" (ICI),
+  * compact projected records are all-gathered over "data",
   * every device owns a disjoint slice of image tiles (tiles partitioned
     over the flattened mesh) and composites only those,
   * in training, gradients flow backward through the all_gather as an
@@ -118,13 +118,13 @@ def _render_my_tiles(splats: Splats4D, t, camera: Camera, cfg: RenderConfig,
 #   2. in the tile-major sorted order, the pairs bound for each device's
 #      tile window form a CONTIGUOUS RUN — sliced (no scatter!) into fixed
 #      per-destination blocks, carrying the 10 composite record fields,
-#   3. one all_to_all (ICI) delivers every device its window's pairs,
+#   3. one all_to_all delivers every device its window's pairs,
 #   4. a final local sort of ~P/n_dev received pairs merges the n_dev
 #      sorted runs; per-tile lists are then CONTIGUOUS slices of the
 #      record array, so the slab compositor needs no random gather at all.
 #
 # Per-device sort + composite work scales 1/n_dev; exchange volume is
-# ~44 B/pair over ICI. Send blocks have a static budget with overflow
+# ~44 B/pair over the interconnect. Send blocks have a static budget with overflow
 # accounting (aux) instead of silent loss.
 
 
@@ -338,37 +338,25 @@ def _converged_alltoall_stacked(splats: Splats4D, t, camera: Camera,
     # samples, per-step banding/rects over the stacked meta (chunks never
     # cross shards — each shard's meta is a chunk multiple).
     band_cuts = TPL.global_band_cuts(samp, cfg.tail_bands)
-    band, rect = TPL.step_bands_rects(
-        meta, cfg.tail_chunk, band_cuts, 0, cfg.max_tiles_per_splat)
-    slot_mask = TPL.step_slot_masks(meta, cfg.tail_chunk,
-                                    cfg.max_tiles_per_splat)
-    wd_ab = None
-    if cfg.tail_depth_beta:
-        d_lo, d_hi = TPL.global_band_extremes(samp)
-        coeffs = TPL.band_weight_coeffs(band_cuts, d_lo, d_hi,
-                                        cfg.tail_bands, cfg.tail_depth_beta)
-        wd_ab = coeffs[band]
+    band = TPL.step_bands(meta, cfg.tail_chunk, band_cuts, 0,
+                          cfg.max_tiles_per_splat)
     params_row = TPL.tail_params_row(cfg.tile_h, cfg.tile_w, cfg.tail_block,
                                      camera.width, camera.height, p00, p11)
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(None, MESH_AXES), P(None, MESH_AXES),
-                       P(MESH_AXES), P(MESH_AXES, None), P(), P(),
-                       P(MESH_AXES), P(MESH_AXES, None)),
+                       P(MESH_AXES), P(), P()),
              out_specs=P(MESH_AXES),
              check_vma=False)
-    def stage2(f, m, b, r, cut, prow, smask, wab):
+    def stage2(f, m, b, cut, prow):
         acc = TPL.tail_accumulate(
-            f, m, b, r, cut, prow, k_bands=cfg.tail_bands, nx=nx, ny=ny,
+            f, m, b, cut, prow, k_bands=cfg.tail_bands, nx=nx, ny=ny,
             chunk=cfg.tail_chunk, budget=cfg.max_tiles_per_splat,
-            s_cy=s_cy, s_cx=s_cx, slot_mask=smask, wd_ab=wab,
-            alpha_pow=cfg.tail_alpha_power,
-            exact_clip=cfg.tail_exact_clip)
+            s_cy=s_cy, s_cx=s_cx, exact_clip=cfg.tail_exact_clip,
+            impl=cfg.tail_impl)
         return acc[None]
 
-    acc = jnp.sum(stage2(fields, meta, band, rect, cut_full, params_row,
-                         slot_mask, wd_ab),
-                  axis=0)
+    acc = jnp.sum(stage2(fields, meta, band, cut_full, params_row), axis=0)
 
     upt = TPL.fold_upsample_tail(acc, cfg.tail_bands, nx, ny, cfg.tile_h,
                                  cfg.tile_w, s_cy, s_cx, dtype)
@@ -396,7 +384,7 @@ def required_send_budget(splats: Splats4D, camera: Camera, mesh: Mesh,
     aux reports drops) and pass the result as `send_budget`: the render is
     then exact, at the cost of a recompile when the measured skew grows.
     Static shapes make a fully dynamic budget impossible under jit; a
-    measured static budget is the TPU-native resolution.
+    measured static budget is the resolution.
     """
     from fourdgs.render.tiles import _emit_pair_slots, splat_tile_bbox
     n_dev = mesh.shape[DATA_AXIS] * mesh.shape[TILE_AXIS]
@@ -581,11 +569,17 @@ def make_sharded_loss(camera: Camera, mesh: Mesh,
         exchange = "allgather"
 
     def tiles_of(img):
-        """(H, W, 4) -> (ny*nx, P, 4) tile view, padded to tt_pad."""
+        """(H, W, C) -> (ny*nx, P, C) tile view, padded to tt_pad."""
+        c = img.shape[-1]
         img = jnp.pad(img, ((0, ny * th - h), (0, nx * tw - w), (0, 0)))
-        tl = img.reshape(ny, th, nx, tw, 4).transpose(0, 2, 1, 3, 4)
-        tl = tl.reshape(ny * nx, th * tw, 4)
+        tl = img.reshape(ny, th, nx, tw, c).transpose(0, 2, 1, 3, 4)
+        tl = tl.reshape(ny * nx, th * tw, c)
         return pad_to_multiple(tl, tt_pad)
+
+    # Tiles of the bottom row and right column reach past the image when
+    # its size is not a tile multiple; those pixels are rendered but are
+    # not part of the image, so the loss leaves them out.
+    on_image = tiles_of(jnp.ones((h, w, 1), jnp.float32))
 
     in_spec = P(DATA_AXIS) if exchange == "allgather" else P(MESH_AXES)
 
@@ -604,8 +598,9 @@ def make_sharded_loss(camera: Camera, mesh: Mesh,
                 params_sharded, t, camera, mesh, cfg, min_opacity,
                 tiles_per_device, budget, materialize=True)
             tgt = tiles_of(target)
-            return jnp.sum((tiles[: ny * nx, ..., :3]
-                            - tgt[: ny * nx, ..., :3]) ** 2) / (h * w * 3)
+            return jnp.sum(on_image[: ny * nx]
+                           * (tiles[: ny * nx, ..., :3]
+                              - tgt[: ny * nx, ..., :3]) ** 2) / (h * w * 3)
 
         return conv_loss_fn
 
@@ -626,10 +621,11 @@ def make_sharded_loss(camera: Camera, mesh: Mesh,
             my_tiles, _ = _render_my_tiles_alltoall(
                 splats, t, camera, cfg, mesh, min_opacity,
                 tiles_per_device, budget)
-        tgt = tiles_of(target)
         my = _device_linear_index(mesh) * tiles_per_device
-        tgt_my = jax.lax.dynamic_slice_in_dim(tgt, my, tiles_per_device, 0)
-        local = jnp.sum((my_tiles[..., :3] - tgt_my[..., :3]) ** 2)
+        tgt_my, on_my = (jax.lax.dynamic_slice_in_dim(a, my, tiles_per_device,
+                                                      0)
+                         for a in (tiles_of(target), on_image))
+        local = jnp.sum(on_my * (my_tiles[..., :3] - tgt_my[..., :3]) ** 2)
         total = jax.lax.psum(local, MESH_AXES)
         return total / (h * w * 3)
 
@@ -673,7 +669,7 @@ def fit_sharded(params: Dict[str, jax.Array], camera: Camera, mesh: Mesh,
     required_send_budget (the measured worst-case (shard -> window) count
     across the mesh) and rebuilds the jitted step with the widened
     budget. Static shapes make a dynamic budget impossible under jit; a
-    measured re-compile is the TPU-native resolution.
+    measured re-compile is the resolution.
 
     Returns (params, losses, final_send_budget).
     """

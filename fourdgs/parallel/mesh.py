@@ -9,7 +9,7 @@ module is the new first-class parallelism layer. Axes:
 For rendering, tiles are actually partitioned across the *flattened* mesh
 (every device owns a disjoint slice of tiles) while projection is
 data-parallel over splat shards; the projected compact records are
-all-gathered over "data" (ICI-friendly: records are ~44 bytes/splat vs the
+all-gathered over "data" (interconnect-friendly: records are ~44 bytes/splat vs the
 full 4D parameter's ~100). Gradients flow back through the gather as a
 reduce-scatter inserted by AD — no hand-written collectives needed.
 """

@@ -1,22 +1,21 @@
 """Multi-host (multi-process) execution entry points.
 
 SURVEY.md section 2.4 plans splats sharded over HOSTS and image tiles over
-chips; BASELINE.md's scaling target (>= 80% efficiency 1 -> 4 hosts)
-presupposes a multi-process setup. This module provides the process-level
-plumbing the single-process mesh layer (parallel/mesh.py) does not:
+devices, which presupposes a multi-process setup. This module provides the
+process-level plumbing the single-process mesh layer (parallel/mesh.py)
+does not:
 
-  * initialize(): `jax.distributed.initialize` wrapper (the TPU-native
-    equivalent of the reference having no distributed runtime at all —
-    NCCL/MPI are replaced by JAX's coordination service + ICI/DCN
-    collectives).
+  * initialize(): `jax.distributed.initialize` wrapper (the reference has
+    no distributed runtime at all; JAX's coordination service sets up the
+    processes and XLA's collectives — NCCL on GPUs — move the data).
   * host_mesh(): a ("data", "tile") mesh whose "data" axis spans PROCESSES
     (each host's local devices fill the "tile" axis), so splat shards live
-    host-local and the all_to_all pair exchange rides ICI within a host /
-    DCN across hosts.
+    host-local and the all_to_all pair exchange rides NVLink within a host
+    and the network across hosts.
   * shard_host_data(): build a global jax.Array from per-process local
     splat shards without ever materializing the global array on one host.
 
-Launch recipe (N processes, e.g. one per TPU host — same binary everywhere):
+Launch recipe (N processes, e.g. one per GPU host — same binary everywhere):
 
     JAX_COORDINATOR=host0:8476 JAX_NUM_PROCESSES=N JAX_PROCESS_ID=i \
         python train.py ...
@@ -50,9 +49,9 @@ def initialize(coordinator: Optional[str] = None,
     (JAX_COORDINATOR / JAX_NUM_PROCESSES / JAX_PROCESS_ID). Returns True if
     initialization happened, False when running single-process (env unset).
 
-    On Cloud TPU pods the three values are auto-detected and callers can
-    simply call initialize() with no env at all; this wrapper only adds the
-    explicit-env path used by the CPU multi-process test."""
+    Nothing detects a GPU cluster: pass the coordinator address
+    (host:port), the process count and this process's id, or set the env
+    variables, on every process."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR")
     if coordinator is None:
         return False

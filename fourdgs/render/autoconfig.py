@@ -1,34 +1,21 @@
 """Automatic pipeline configuration from scene/image size.
 
-VERDICT r4 weak #7: the correct knob settings for every scale the bench
-had tried lived in bench.py env-default heuristics; nothing derived them
-for scales not yet tried. This module is the library home for those
-measured heuristics — one function from (n_splats, width, height) to a
-loss-free RenderConfig, so 200K and 4K runs work with zero overrides.
-
-Rationale per knob (all measured on TPU v5e, rounds 2-4; see
-ARCHITECTURE.md and bench.py history):
+One function from (n_splats, width, height) to a loss-free RenderConfig,
+so every scene size and resolution runs with zero overrides. The values
+below were found loss-free on the 400^3 cube scene (bench.build_cube_scene)
+at 200K/1M/10M splats at 1080p and 10M at 4K:
 
 * pair budget (max_tiles_per_splat): the same scene's footprints span
-  proportionally more tiles at higher resolution; the 1080p-tuned 4
-  overflows at 4K (ROADMAP r4 #6). budget = ceil(4 * resolution scale).
+  proportionally more tiles at higher resolution; budget = ceil(4 *
+  resolution scale).
 * compaction keep (sort_compact_keep_cols): the depth prune's cap is
-  per-tile, so SMALLER scenes keep a LARGER fraction of their pair slots
-  (at 200K only ~15% of slots die vs ~96% at 10M); a fixed keep=64 drops
-  real pairs there (loud via compact_dropped; measured 23.8K dropped at
-  200K splats). keep 192 below 2M splats, 64 at bench scale and above.
-* head slab / prune cap 384: the measured knee where the exact head
-  covers the visually-dominant near field while the banded tail streams
-  the rest (r4 convergence design).
+  per-tile, so SMALLER scenes keep a LARGER fraction of their pair slots;
+  a fixed small keep drops real pairs there (loud via compact_dropped).
+* exact head slab / prune cap: the exact head covers the visually
+  dominant near field while the banded tail streams the rest.
 * tail block 16x16: halving the tail's sample count vs 8x16 costs no
   measurable parity error (within-band OIT mixing dominates, not sample
-  resolution) and saves ~3 ms (r4).
-* within-band weighting OFF: both depth weighting (tail_depth_beta,
-  p99 0.267 -> 0.292 at beta 20) and opacity-dominance weighting
-  (tail_alpha_power, p99 0.267 -> 0.275 at p=1) were MEASURED TO HURT
-  the 1M parity gate — the r4 "opaque-core mixing" hypothesis did not
-  survive direct experiment; plain OIT is the best within-band mix
-  found. Both knobs remain available for experiments.
+  resolution).
 """
 
 from __future__ import annotations
@@ -40,7 +27,7 @@ from fourdgs.render.pipeline import RenderConfig
 
 def auto_render_config(n_splats: int, width: int, height: int,
                        converged: bool = True, **overrides) -> RenderConfig:
-    """Derive a loss-free production RenderConfig for the pallas pipeline.
+    """Derive a loss-free production RenderConfig for the slab pipeline.
 
     converged=True (default) enables the streaming banded-OIT tail (zero
     pair truncation — the reference's blend-everything semantics;
@@ -56,14 +43,12 @@ def auto_render_config(n_splats: int, width: int, height: int,
     """
     res_scale = max(width / 1920.0, height / 1088.0, 1.0)
     budget = math.ceil(4 * res_scale)
-    # keep = row live mean + >5 sigma. In converged mode the low-variance
-    # 256-block prune sampler (ops/lookup_pallas.sample_blocks) lands the
-    # kept volume at its theoretical target (~0.94M pairs at the 10M
-    # bench = mean 12/row, sigma 3.5): keep 32 holds at +5.7 sigma,
-    # measured loss-free and ~1.2 ms faster than 48 (round 5). The
-    # non-converged mode prunes at safety 2.0 (higher live fraction):
-    # keep 48. Small scenes keep a larger fraction (prune is per-tile):
-    # 192.
+    # keep = row live mean + >5 sigma over 512-slot rows. In converged
+    # mode the 256-block prune sampler (tiles.depth_prune_cutkeys) lands
+    # the kept volume at its target (~0.94M pairs at 10M splats = mean
+    # 12/row, sigma 3.5): keep 32 holds at +5.7 sigma. The non-converged
+    # mode prunes at safety 2.0 (higher live fraction): keep 48. Small
+    # scenes keep a larger fraction (prune is per-tile): 192.
     if n_splats >= 2_000_000:
         compact = 32 if converged else 48
     else:
@@ -79,34 +64,26 @@ def auto_render_config(n_splats: int, width: int, height: int,
         big_splat_keep_cols=128,
         deepening_passes=6,
         deepening_fraction=0.34,
-        sort_backend="xla",
-        compact_backend="pallas",
         compact_row_len=512,
         depth_prune_cap=384,
     )
     if converged:
         cfg.update(
             # Head slab 256 (vs the non-converged 384): head depth is
-            # parity-FLAT (the r5 slab sweep 128->768 moved p99 by
-            # nothing — the envelope is tail-sampling-bound, see
-            # ARCHITECTURE.md), and the smaller exact head is ~1.3 ms
-            # cheaper at the 10M bench.
+            # parity-FLAT (a slab sweep 128->768 moved the 1M parity p99
+            # by nothing — the envelope is tail-sampling-bound, see
+            # ARCHITECTURE.md).
             max_splats_per_tile=256,
             depth_prune_cap=256,
             depth_prune_safety=1.2,
             tail_mode="banded",
             tail_bands=8,
             tail_block=(16, 16),
-            # 16384-splat grid steps: the kernel's per-step overhead
-            # (scalar prefetch, window staging) dominated at 2048
-            # (measured 59.5 -> 52.9 ms via 4096/8192/16384; 32768
-            # regresses — window rects grow with the Morton block).
+            # Depth bands are assigned per 16384 Morton-ordered splats.
             tail_chunk=16384,
-            # The head's exact quad clip in the tail too: measured FREE
-            # (within noise at the 10M bench) and semantically faithful
-            # to the reference's quad-bounded fragments. It does NOT move
-            # the parity gate's p99 (round-5 measurement) — see
-            # ARCHITECTURE.md's round-5 attribution table.
+            # The head's exact quad clip in the tail too: semantically
+            # faithful to the reference's quad-bounded fragments. It does
+            # not move the parity gate's p99 (ARCHITECTURE.md).
             tail_exact_clip=True,
         )
     else:

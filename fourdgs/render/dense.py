@@ -15,8 +15,8 @@ Rather than looping pixels (the GPU rasterizer's job in the reference), the
 whole composite is expressed as a scan over front-to-back splat chunks with a
 running per-pixel log-transmittance; inside a chunk the ordered blend becomes
 an exclusive cumsum of log(1 - alpha) followed by a [pixels x chunk] @
-[chunk x 4] matmul — MXU-friendly, fully differentiable, no data-dependent
-shapes.
+[chunk x 4] matmul (at HIGHEST precision) — fully differentiable, no
+data-dependent shapes.
 """
 
 from __future__ import annotations
@@ -102,7 +102,8 @@ def composite_dense(proj: Projected, px: jax.Array, py: jax.Array,
         cw = wgt * weight if premultiplied else wgt
         rgb_chunk = jnp.stack([chunk_proj.r, chunk_proj.g, chunk_proj.b], axis=-1)
         rgb_acc = rgb_acc + jnp.einsum("cp,cd->pd", cw, rgb_chunk,
-                                       preferred_element_type=dtype)
+                                       preferred_element_type=dtype,
+                                       precision=jax.lax.Precision.HIGHEST)
         # GL alpha channel: out.a = a*src.a + (1-a)*dst.a with src.a = a.
         a_acc = a_acc + jnp.sum(alpha * wgt, axis=0)
         log_t = log_t + jnp.sum(log1m, axis=0)
@@ -158,7 +159,7 @@ def composite_dense_blend(proj: Projected, px: jax.Array, py: jax.Array,
                           dst_factor: str = "one_minus_src_alpha",
                           premultiplied: bool = False) -> jax.Array:
     """Back-to-front composite under an ARBITRARY glBlendFunc pair — the
-    TPU-native analog of the reference's blend-function explorer
+    analog of the reference's blend-function explorer
     (DebugMenus.h:211-274 driving glBlendFunc at Application.cpp:150).
 
     `proj` must be in *front-to-back* order (like composite_dense); the scan

@@ -1,6 +1,6 @@
 """Debug overlays: world-space lines, grid and axis cross.
 
-TPU-native analog of the reference Renderer's immediate-mode helpers —
+Analog of the reference Renderer's immediate-mode helpers —
 DrawLine (Renderer.cpp:41-77, polyline :79-111), DrawGrid (:113-162),
 DrawAxis (:206-215) — drawn by every scene for grid/axis/unit-length/path
 visualization (e.g. Scenes.h:303-310). Instead of GL line primitives, each

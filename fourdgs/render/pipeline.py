@@ -1,14 +1,17 @@
 """The production render pipeline: project -> bin -> sort -> composite.
 
-This is the TPU-native replacement for the reference's per-frame critical
-path (SURVEY.md section 3.3): instead of a host loop computing sort keys, two
-host->device uploads, 8 radix passes with full memory barriers, and an
-instanced draw, the whole frame is one jit: every stage is on device and the
-composite runs per image tile with only the splats that touch it.
+This replaces the reference's per-frame critical path (SURVEY.md section
+3.3): instead of a host loop computing sort keys, two host->device uploads,
+8 radix passes with full memory barriers, and an instanced draw, the whole
+frame is one jit: every stage is on device and the composite runs per image
+tile with only the splats that touch it.
 
-Two interchangeable composite backends with identical semantics:
-  * "xla"    — pure jnp (runs anywhere; correctness baseline)
-  * "pallas" — fused TPU kernel (fourdgs/ops/composite_pallas.py)
+Two composite backends with identical semantics:
+  * "xla"    — pure jnp fixed-capacity compositor (correctness baseline)
+  * "pallas" — the depth-slab compositor of ops/composite_pallas.py (plus
+               the banded tail of ops/tail_pallas.py); `composite_impl` and
+               `tail_impl` pick their Triton kernels or the plain XLA
+               references
 
 The pipeline is differentiable end to end: binning/sorting produce integer
 plumbing (no gradient needed, matching the non-differentiability of a
@@ -19,6 +22,7 @@ to every splat parameter.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import jax
@@ -45,17 +49,23 @@ class RenderConfig:
     max_splats_per_tile: int = 1024  # per-tile composite capacity
     splat_chunk: int = 64            # composite chunk (scan step) size
     backend: str = "xla"             # "xla" | "pallas"
+    # Slab compositor and tail implementations (backend="pallas"):
+    # "triton" runs the Pallas kernels (compiled on the GPU, interpreted on
+    # the CPU), "xla" the plain references they are checked against.
+    composite_impl: str = "triton"
+    tail_impl: str = "triton"
     background: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
     # 10M+ fast path: fused (tile | quantized-depth) single-key sort instead
     # of exact argsort + permutation (see render/tiles.py). Exact ordering
     # differences are below visual precision; tests use the exact path.
     quantized_depth_sort: bool = False
-    # Pair compaction ahead of the global sort (quantized path only):
-    # batched VMEM row sort pushes dead pair slots to row tails, keep this
-    # many columns of each COMPACT_ROW_LEN-wide row (0 = off). Size it at
-    # ceil(live_fraction * 8192 + margin, 128); dropped live pairs are
-    # counted in aux["compact_dropped"] — keep it 0.
+    # Pair compaction ahead of the global sort (quantized path only): a
+    # batched row sort over strided rows of compact_row_len slots pushes
+    # dead pair slots to row tails; keep this many columns of each row
+    # (0 = off). Size it at live_fraction * compact_row_len + margin;
+    # dropped live pairs are counted in aux["compact_dropped"] — keep it 0.
     sort_compact_keep_cols: int = 0
+    compact_row_len: int = 8192
     # Two-tier pair emission (quantized path): splats whose bbox spans more
     # than max_tiles_per_splat tiles are compacted (fixed capacity
     # big_splat_keep_cols per 8192-wide row) and re-emitted with this slot
@@ -75,18 +85,6 @@ class RenderConfig:
     # uniform ones pays the per-pass selection/gather/scatter overhead once
     # (the 10M bench: 5 x 512 re-gathers -> 1 x 2560). () = uniform slabs.
     deepening_schedule: Tuple[int, ...] = ()
-    # Pair-sort backend (quantized + compacted path only): "pallas" stitches
-    # the compaction's sorted rows with the VMEM bitonic merge tree
-    # (ops/sort_pallas.py) instead of the global lax.sort; needs
-    # power-of-two sort_compact_keep_cols.
-    sort_backend: str = "xla"
-    # Compaction backend for the xla sort_backend: "pallas" = the fused
-    # sublane rowsort+keep kernel (ops/sort_pallas.rowsort_compact).
-    compact_backend: str = "xla"
-    # Logical row length of the pallas rowsort (power of two). Shorter rows
-    # sort in fewer bitonic stages (cost ~ log^2(row_len)); keep_cols must
-    # then cover the per-row live count (which shrinks proportionally).
-    compact_row_len: int = 8192
     # Per-tile depth pruning (quantized, single-chip): drop pairs deeper
     # than ~depth_prune_safety x this cap per tile before the sort. Set to
     # the maximum composited depth (max_splats_per_tile * deepening_passes);
@@ -107,19 +105,7 @@ class RenderConfig:
     tail_mode: str = "off"          # "off" | "banded"
     tail_bands: int = 8             # depth bands (ordered; OIT within)
     tail_block: Tuple[int, int] = (8, 8)   # coarse px block (y, x)
-    tail_chunk: int = 2048          # splats per tail grid step
-    # Within-band depth weighting (tail_pallas.band_weight_coeffs): pair
-    # weight e^beta at the band's near edge. MEASURED TO HURT on the 1M
-    # parity gate (p99 0.267 -> 0.292 at beta 20): the within-band error
-    # is opaque-core dominance, not depth bias. Kept for experiments;
-    # default off.
-    tail_depth_beta: float = 0.0
-    # Opacity-dominance weighting: the band's color/alpha mix weights
-    # pairs by alpha^(1+p) instead of alpha, so a near-opaque core
-    # out-votes accumulated low-alpha dust — the exact-composite behavior
-    # plain OIT loses (the r4 parity gate's dominant error mode). 0 =
-    # plain OIT.
-    tail_alpha_power: int = 0
+    tail_chunk: int = 2048          # splats per depth-band assignment
     # Apply the head's exact |n| <= 0.5 quad clip in the tail kernel too
     # (reference: fragments only exist inside the quad,
     # Splat4DVertexShaderInstanced.GLSL:145-147). Without it the tail
@@ -139,8 +125,7 @@ def _gather_pair_rows(pair_padded: jax.Array, starts: jax.Array, m: int):
     """(T,) starts -> (T, m) contiguous windows of the sorted pair array.
 
     vmap-of-dynamic_slice lowers to a gather with slice_sizes=(m,) —
-    contiguous row reads — instead of T*m independent element gathers
-    (measured ~25 ns per gathered element on TPU; rows are ~free)."""
+    contiguous row reads — instead of T*m independent element gathers."""
     def row(s):
         return jax.lax.dynamic_slice_in_dim(pair_padded, s, m)
     return jax.vmap(row)(starts)
@@ -212,7 +197,8 @@ def _composite_tiles_xla(proj: Projected, tile_splat: jax.Array,
         rgb_chunk = jnp.stack([proj.r[sidx], proj.g[sidx], proj.b[sidx]],
                               axis=-1)            # (T, C, 3)
         rgb_acc = rgb_acc + jnp.einsum("tcp,tcd->tpd", wgt, rgb_chunk,
-                                       preferred_element_type=dtype)
+                                       preferred_element_type=dtype,
+                                       precision=jax.lax.Precision.HIGHEST)
         a_acc = a_acc + jnp.sum(alpha * wgt, axis=1)
         log_t = log_t + jnp.sum(log1m, axis=1)
         return (rgb_acc, a_acc, log_t), None
@@ -284,8 +270,6 @@ def render_projected(proj: Projected, camera: Camera,
                                    if use_quant else 0),
                 big_splat_budget=cfg.big_splat_budget,
                 big_splat_keep_cols=cfg.big_splat_keep_cols,
-                pallas_sort=(cfg.sort_backend == "pallas"),
-                pallas_compact=(cfg.compact_backend == "pallas"),
                 compact_row_len=cfg.compact_row_len,
                 depth_prune_cap=cfg.depth_prune_cap,
                 depth_prune_safety=cfg.depth_prune_safety,
@@ -365,7 +349,6 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
     traffic adapts to each tile's true depth complexity.
     """
     from fourdgs.ops.composite_pallas import (composite_records,
-                                              composite_records_at,
                                               identity_carry, pack_records,
                                               record_fields)
     m = cfg.max_splats_per_tile
@@ -382,30 +365,20 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
     ky = (py / p11).reshape(t_tiles, 1, p)
     arange_m = jnp.arange(m, dtype=jnp.int32)
 
-    # ONE record-field matrix serves the head's strip gather AND the tail
-    # kernel's field stream. Padded to the tail-chunk multiple through the
-    # repack kernel when the tile volume allows (ops/pack_pallas.py) —
-    # jnp.stack costs a relayout loop per row at 10M scale.
+    # ONE record-field matrix serves the head's strip gather AND the tail's
+    # field stream.
     rec_shared = None
     if cfg.tail_mode == "banded" and binning.prune_cut is not None:
-        n_splats = proj.mx.shape[0]
-        npts = -(-n_splats // cfg.tail_chunk) * cfg.tail_chunk
-        rec_shared = record_fields(
-            proj, p00, p11, pad_to=npts if npts % 1024 == 0 else None)
+        rec_shared = record_fields(proj, p00, p11)
+    composite = functools.partial(composite_records, impl=cfg.composite_impl)
 
     with jax.named_scope("pass1_pack"):
         rows0 = _gather_pair_rows(pair_pad, starts, m)
         live0 = arange_m[None, :] < counts_full[:, None]
-        # pack8 on the production (shared-record) path: the head gather
-        # moves one 32-byte granule per index instead of two; colors and
-        # a_eff ride as bf16 — still finer than the reference's 8-bit
-        # framebuffer (ops/composite_pallas._gather_records_8row).
-        rec0 = pack_records(proj, rows0, live0, p00, p11, rec=rec_shared,
-                            pack8=rec_shared is not None)
+        rec0 = pack_records(proj, rows0, live0, p00, p11, rec=rec_shared)
     with jax.named_scope("pass1_kernel"):
-        out = composite_records(rec0,
-                                jnp.minimum(counts_full, m).astype(jnp.int32),
-                                kx, ky, identity_carry(t_tiles, dtype, p))
+        out = composite(rec0, jnp.minimum(counts_full, m).astype(jnp.int32),
+                        kx, ky, identity_carry(t_tiles, dtype, p))
     pairs_done = jnp.minimum(counts_full, m)
 
     t_cap = max(128, int(round(t_tiles * cfg.deepening_fraction)))
@@ -431,7 +404,6 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
         schedule = cfg.deepening_schedule or (m,) * (cfg.deepening_passes - 1)
         assert len(schedule) == cfg.deepening_passes - 1, \
             (cfg.deepening_schedule, cfg.deepening_passes)
-        assert all(mi % 128 == 0 for mi in schedule), schedule  # kernel CHUNK
     # Pad the slab pair array so the largest scheduled slab slices in-range.
     if schedule and max(schedule) > m:
         pair_pad = _pad_pairs(binning.pair_splat, max(schedule))
@@ -456,10 +428,9 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
         cnt = jnp.where(act,
                         jnp.clip(counts_full[sel] - pairs_done[sel], 0, mi),
                         0).astype(jnp.int32)
-        # Scatter-free carry update: the pallas grid addresses the selected
-        # carry/pixel blocks directly (sel is a permutation prefix, entries
-        # distinct; fillers have cnt 0 and write the carry back unchanged).
-        out = composite_records_at(rec, cnt, sel, kx, ky, out)
+        # sel is a permutation prefix (entries distinct); fillers have
+        # cnt 0 and write their carry back unchanged.
+        out = out.at[sel].set(composite(rec, cnt, kx[sel], ky[sel], out[sel]))
         pairs_done = pairs_done.at[sel].add(jnp.where(act, cnt, 0))
 
     rgb = out[:, 0:3, :] + out[:, 4:5, :] * background[:3, None]
@@ -479,22 +450,18 @@ def _composite_pallas_progressive(proj: Projected, binning, px, py, p00, p11,
     return tiles
 
 
-def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
-                       cfg: RenderConfig, w: int, h: int,
-                       tile_row_band=None, fields=None):
-    """Composite every pair beyond the per-tile prune cut into the carry.
-
-    Streams the full splat set through the banded-OIT coarse tail kernel
-    (ops/tail_pallas.py — zero sorting, zero gathers), folds the K ordered
-    depth bands, bilinearly upsamples the coarse tail field, and blends it
-    under the head's per-pixel transmittance. `out` is the (T, 8, P) head
-    carry (pre-background); returns the updated carry."""
+def tail_streams(proj: Projected, binning, p00, p11, cfg: RenderConfig,
+                 w: int, h: int, tile_row_band=None, fields=None):
+    """The tail_accumulate calls that composite every pair beyond the
+    per-tile prune cut: a list of (scope name, keyword arguments), the main
+    stream first and the big-splat tier (if any) second. Their summed
+    accumulators form the tail field."""
     from fourdgs.ops import tail_pallas as TPL
     from fourdgs.ops.composite_pallas import record_fields
-    from fourdgs.render.tiles import quantized_depth_bits, splat_tile_bbox
+    from fourdgs.render.tiles import (quantized_depth_bits, sample_blocks,
+                                      splat_tile_bbox)
 
     ny, nx = tile_grid(w, h, cfg.tile_h, cfg.tile_w)
-    dtype = out.dtype
     dead = jnp.iinfo(jnp.int32).max
     alive, tx0, tx1, ty0, ty1 = splat_tile_bbox(
         proj, p00, p11, w, h, cfg.tile_h, cfg.tile_w)
@@ -509,22 +476,14 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
     dbits = quantized_depth_bits(proj.depth)
     if fields is None:
         fields = record_fields(proj, p00, p11)             # (10, N)
-    cut = binning.prune_cut
-    k_bands = cfg.tail_bands
 
     # Global depth-band cuts from a contiguous-block subsample of live
-    # depth bits. Every XLA formulation of strided block extraction is
-    # latency-bound (~1 us/block: the reshape-column-slice here traced
-    # 0.94 ms for 0.6 MB; a vmapped dynamic-slice variant was 2.4 ms) —
-    # the pipelined pallas sampler does it at DMA speed.
+    # depth bits (the first 128 of every 8192).
     n = dbits.shape[0]
-    if n >= 16384 and n % 128 == 0:
-        from fourdgs.ops.lookup_pallas import sample_blocks
-        db_live_s, = sample_blocks([jnp.where(alive, dbits, dead)],
-                                   stride_rows=64, take_rows=1)
-    else:
-        db_live_s = jnp.where(alive, dbits, dead)
-    band_cuts = TPL.global_band_cuts(db_live_s, k_bands)
+    db_live = jnp.where(alive, dbits, dead)
+    if n >= 16384:
+        db_live = sample_blocks(db_live, stride=8192, take=128)
+    band_cuts = TPL.global_band_cuts(db_live, cfg.tail_bands)
 
     # Affine sample-coordinate params (k units; see tail_pallas docstring;
     # ty_base folds the tile-row band's pixel offset into the constants).
@@ -532,63 +491,64 @@ def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
     s_cy, s_cx = cfg.tile_h // by, cfg.tile_w // bx
     assert s_cy * by == cfg.tile_h and s_cx * bx == cfg.tile_w, \
         (cfg.tail_block, cfg.tile_h, cfg.tile_w)
-    params_row = TPL.tail_params_row(cfg.tile_h, cfg.tile_w,
-                                     cfg.tail_block, w, h, p00, p11,
-                                     ty_base)
+    common = dict(
+        cut=binning.prune_cut,
+        params_row=TPL.tail_params_row(cfg.tile_h, cfg.tile_w,
+                                       cfg.tail_block, w, h, p00, p11,
+                                       ty_base),
+        k_bands=cfg.tail_bands, nx=nx, ny=ny, s_cy=s_cy, s_cx=s_cx,
+        exact_clip=cfg.tail_exact_clip)
 
     chunk = cfg.tail_chunk
-    # ONE raw meta array (budget windows applied in-kernel) serves the
-    # main stream, the band/rect prepass, and the big-tier gather.
-    meta, mrows = TPL.tail_meta(alive, tx0, tx1, ty0, ty1, dbits, chunk,
-                                return_rows=True)
-    band, rect, slot_mask = TPL.tail_prepass(
-        mrows, band_cuts, chunk, cfg.max_tiles_per_splat,
-        k_bands=k_bands)
-    coeffs = None
-    wd_ab = None
-    if cfg.tail_depth_beta:
-        d_lo, d_hi = TPL.global_band_extremes(db_live_s)
-        coeffs = TPL.band_weight_coeffs(band_cuts, d_lo, d_hi, k_bands,
-                                        cfg.tail_depth_beta)
-        wd_ab = coeffs[band]                                 # (S, 2)
-    with jax.named_scope("tail_main"):
-        acc = TPL.tail_accumulate(
-            fields, meta, band, rect, cut, params_row, k_bands=k_bands,
-            nx=nx, ny=ny, chunk=chunk, budget=cfg.max_tiles_per_splat,
-            s_cy=s_cy, s_cx=s_cx, slot_mask=slot_mask, wd_ab=wd_ab,
-            alpha_pow=cfg.tail_alpha_power,
-            exact_clip=cfg.tail_exact_clip)
+    # ONE raw meta array (budget windows applied per stream) serves the
+    # main stream, the banding, and the big-tier gather.
+    meta = TPL.tail_meta(alive, tx0, tx1, ty0, ty1, dbits, chunk)
+    band = TPL.step_bands(meta, chunk, band_cuts, 0, cfg.max_tiles_per_splat)
+    streams = [("tail_main", dict(
+        common, fields=fields, meta=meta, band=band, chunk=chunk,
+        budget=cfg.max_tiles_per_splat))]
 
     if binning.big_ids is not None:
         # Big-tier stream: the kept wide-span splat ids re-walked with the
         # big budget window (exactly the head's big tier). The id list is
-        # tiny after the second-level compaction (~800 live at the 10M
-        # bench), so two row gathers (fields, meta) are ~free.
+        # tiny after the second-level compaction, so two row gathers
+        # (fields, meta) are cheap.
         ids = binning.big_ids
         safe = jnp.minimum(ids, n - 1)
-        bfields = fields[:, safe]
-        meta_g = meta[:, safe]
-        b_dead = (ids == dead)
-        meta_b0 = jnp.where(b_dead[None, :], 0, meta_g)
+        meta_b = jnp.where((ids == dead)[None, :], 0, meta[:, safe])
         chunk_b = min(512, _ceil8(ids.shape[0]))
         npad = -(-ids.shape[0] // chunk_b) * chunk_b
-        if npad != ids.shape[0]:
-            meta_b0 = jnp.pad(meta_b0, ((0, 0), (0, npad - ids.shape[0])))
-        band_b, rect_b = TPL.step_bands_rects(
-            meta_b0, chunk_b, band_cuts, cfg.max_tiles_per_splat,
-            cfg.big_splat_budget)
-        mask_b = TPL.step_slot_masks(meta_b0, chunk_b,
-                                     cfg.big_splat_budget,
-                                     budget_lo=cfg.max_tiles_per_splat)
-        wd_ab_b = None if coeffs is None else coeffs[band_b]
-        with jax.named_scope("tail_big"):
-            acc = acc + TPL.tail_accumulate(
-                bfields, meta_b0, band_b, rect_b, cut, params_row,
-                k_bands=k_bands, nx=nx, ny=ny, chunk=chunk_b,
-                budget=cfg.big_splat_budget, s_cy=s_cy, s_cx=s_cx,
-                budget_lo=cfg.max_tiles_per_splat, slot_mask=mask_b,
-                wd_ab=wd_ab_b, alpha_pow=cfg.tail_alpha_power,
-                exact_clip=cfg.tail_exact_clip)
+        meta_b = jnp.pad(meta_b, ((0, 0), (0, npad - ids.shape[0])))
+        band_b = TPL.step_bands(meta_b, chunk_b, band_cuts,
+                                cfg.max_tiles_per_splat, cfg.big_splat_budget)
+        streams.append(("tail_big", dict(
+            common, fields=fields[:, safe], meta=meta_b, band=band_b,
+            chunk=chunk_b, budget=cfg.big_splat_budget,
+            budget_lo=cfg.max_tiles_per_splat)))
+    return streams
+
+
+def _apply_banded_tail(out, proj: Projected, binning, p00, p11,
+                       cfg: RenderConfig, w: int, h: int,
+                       tile_row_band=None, fields=None):
+    """Composite every pair beyond the per-tile prune cut into the carry.
+
+    Streams the full splat set through the banded-OIT coarse tail
+    (ops/tail_pallas.py — zero sorting, zero gathers), folds the K ordered
+    depth bands, bilinearly upsamples the coarse tail field, and blends it
+    under the head's per-pixel transmittance. `out` is the (T, 8, P) head
+    carry (pre-background); returns the updated carry."""
+    from fourdgs.ops import tail_pallas as TPL
+
+    acc = 0.0
+    for scope, kw in tail_streams(proj, binning, p00, p11, cfg, w, h,
+                                  tile_row_band, fields):
+        with jax.named_scope(scope):
+            acc = acc + TPL.tail_accumulate(**kw, impl=cfg.tail_impl)
+    ny, nx = kw["ny"], kw["nx"]
+    s_cy, s_cx = kw["s_cy"], kw["s_cx"]
+    k_bands = cfg.tail_bands
+    dtype = out.dtype
 
     # Fold bands, upsample the coarse tail field, blend under T_head.
     with jax.named_scope("tail_combine"):
@@ -614,8 +574,7 @@ def _composite_pairrec_progressive(rec_pairs: jax.Array, tile_start: jax.Array,
 
     Same per-tile slab-counter deepening as _composite_pallas_progressive.
     """
-    from fourdgs.ops.composite_pallas import (_F, N_FIELDS,
-                                              composite_records,
+    from fourdgs.ops.composite_pallas import (N_FIELDS, composite_records,
                                               identity_carry)
     m = cfg.max_splats_per_tile
     dtype = px.dtype
@@ -633,21 +592,19 @@ def _composite_pairrec_progressive(rec_pairs: jax.Array, tile_start: jax.Array,
     arange_m = jnp.arange(m, dtype=jnp.int32)
 
     def slab_recs(base, live):
-        """(T_sel,) row starts -> (T_sel, _F, m) kernel records; `live`
-        masks contiguous-array bleed into the next tile's records."""
+        """(T_sel,) row starts -> (T_sel, N_FIELDS, m) kernel records;
+        `live` masks contiguous-array bleed into the next tile's records."""
         rows = jax.vmap(
             lambda s: jax.lax.dynamic_slice(rec_pad, (s, 0),
                                             (m, N_FIELDS)))(base)
         rows = rows * live[..., None].astype(rows.dtype)
-        rec = jnp.swapaxes(rows, 1, 2)                     # (T_sel, NF, m)
-        return jnp.concatenate(
-            [rec, jnp.zeros((rec.shape[0], _F - N_FIELDS, m), rec.dtype)],
-            axis=1)
+        return jnp.swapaxes(rows, 1, 2)
 
     live0 = arange_m[None, :] < counts_full[:, None]
     rec0 = slab_recs(starts, live0)
-    out = composite_records(rec0, jnp.minimum(counts_full, m).astype(jnp.int32),
-                            kx, ky, identity_carry(t_tiles, dtype, p))
+    composite = functools.partial(composite_records, impl=cfg.composite_impl)
+    out = composite(rec0, jnp.minimum(counts_full, m).astype(jnp.int32),
+                    kx, ky, identity_carry(t_tiles, dtype, p))
     slab_done = jnp.ones((t_tiles,), jnp.int32)
 
     t_cap = min(t_tiles, max(128, int(round(t_tiles * cfg.deepening_fraction))))
@@ -665,7 +622,7 @@ def _composite_pairrec_progressive(rec_pairs: jax.Array, tile_start: jax.Array,
         cnt = jnp.where(act,
                         jnp.clip(counts_full[sel] - slab_done[sel] * m, 0, m),
                         0).astype(jnp.int32)
-        out_s = composite_records(rec, cnt, kx[sel], ky[sel], out[sel])
+        out_s = composite(rec, cnt, kx[sel], ky[sel], out[sel])
         out = out.at[sel].set(out_s)
         slab_done = slab_done.at[sel].add(act.astype(jnp.int32))
 
@@ -714,8 +671,8 @@ def render_splats4d(splats: Splats4D, camera: Camera, t,
                     cfg: RenderConfig = RenderConfig(),
                     return_aux: bool = False):
     """The flagship path: 4D slice + EWA + tiled ordered composite, one jit,
-    zero host round trips. For 10M+ splats use render_params4d_packed —
-    (N,4,4) covariance tensors get pathological TPU layouts at that scale."""
+    zero host round trips. For 10M+ splats use render_params4d_packed,
+    which never materializes (N, 4, 4) covariance tensors."""
     sliced, top = splats.at_time(t, min_opacity)
     sort_mean = mean_in_time_sortkey(splats.position, splats.cov, t)
     return render_splats3d(sliced, camera, opacity=top, sort_mean3=sort_mean,

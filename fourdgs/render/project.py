@@ -36,11 +36,10 @@ Frustum cull (GLSL :108-115): drop the splat when z_ndc < 0 or > 1 or
 |x_ndc|, |y_ndc| > 1.2 (note the asymmetric z test against the GL [-1, 1]
 depth range — a reference quirk we reproduce).
 
-TPU LAYOUT NOTE: all per-splat quantities are separate 1-D (N,) component
+LAYOUT NOTE: all per-splat quantities are separate 1-D (N,) component
 arrays ("scalar SoA"). Batched (N, k) / (N, k, k) tensors with tiny trailing
-dims get catastrophic padded tile layouts at 10M scale (a 3x3 becomes a
-(4,128) tile), and tiny-matrix einsums lower to badly-laid-out dot ops; pure
-scalar component arithmetic fuses into one elementwise pass instead.
+dims lower to tiny-matrix dot ops and strided layouts; pure scalar component
+arithmetic fuses into one elementwise pass instead.
 """
 
 from __future__ import annotations
@@ -101,7 +100,7 @@ def eigen2x2(cov2: jax.Array):
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class Projected:
-    """Scalar structure-of-arrays of screen-space splats — the TPU-native
+    """Scalar structure-of-arrays of screen-space splats — the
     analog of the vertex-shader outputs (oSig/oColor/oFragPos/oFaulty/
     oTimeOpacity). Every field is a 1-D (N,) array (see module layout note).
     Lengths l are in k units (NDC offset over the projection diagonal)."""

@@ -2,10 +2,8 @@
 
 The reference sorts per frame with a GPU radix sort fed by a host loop
 (Scenes.h:312-328 + GPU_RADIX_SORT/radix_sort.hpp). Here ordering is a pure
-on-device computation: `jax.lax.sort` (XLA's fused sort) over the same keys.
-(A scatter-phase radix reorder is bandwidth-hostile on TPU — random HBM
-writes defeat the vector memory path — so XLA's merge sort IS the
-TPU-appropriate algorithm here; see ARCHITECTURE.md "sorting".)
+on-device computation: `jax.lax.sort` over the same keys, which XLA hands
+to a CUB radix sort on the GPU (see ARCHITECTURE.md "sorting").
 """
 
 from __future__ import annotations

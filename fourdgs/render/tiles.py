@@ -1,7 +1,6 @@
 """Tile binning: map each projected splat to the image tiles it covers.
 
-TPU-native replacement for the GL rasterizer's implicit scatter of quads to
-pixels. The image is divided into TILE_H x TILE_W pixel tiles; each splat's
+Replaces the GL rasterizer's implicit scatter of quads to pixels. The image is divided into TILE_H x TILE_W pixel tiles; each splat's
 rasterized-quad bounding box (Projected.half_extent_ndc) selects a rectangle
 of tiles. Because XLA needs static shapes, each splat emits a fixed budget of
 (tile, splat) pairs (`max_tiles_per_splat`); splats whose bbox covers more
@@ -21,7 +20,6 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from fourdgs.render.project import Projected
 
@@ -78,33 +76,31 @@ class TileBinning:
 
 QUANT_DEPTH_BITS = 20
 
-COMPACT_ROW_LEN = 8192  # batched-VMEM row-sort width for pair compaction
+COMPACT_ROW_LEN = 8192  # default row length of the pair compaction
+DEAD = jnp.iinfo(jnp.int32).max
 
 
 def compact_pairs(key: jax.Array, val: jax.Array, dead: int, keep_cols: int,
-                  rows: int | None = None, alternating: bool = False,
-                  flat: bool = True):
+                  row_len: int = COMPACT_ROW_LEN):
     """Shrink a mostly-dead pair array before the global sort.
 
     The pair arrays have a fixed slot budget (max_tiles_per_splat * N) but
-    only ~half the slots are live; the global kv `lax.sort` (~3.1 ns/elem on
-    TPU v5e) pays for every dead slot. A batched row sort over
-    (rows, COMPACT_ROW_LEN) is ~4x cheaper per element (VMEM-resident rows),
-    and pushes every row's dead slots (key == dead sentinel = int32 max) to
-    its tail; keeping the first `keep_cols` columns then drops almost only
-    dead slots. Rows are STRIDED views of the flat array (element i of row r
-    is key[i * rows + r]) so each row samples splats uniformly across the
-    whole range and across bbox slots — row liveness concentrates around the
-    global live fraction even for spatially-ordered splat lists (a contiguous
-    split would let one model region saturate a row).
+    few slots are live after the depth prune, and the global kv `lax.sort`
+    pays for every dead slot. A batched sort of rows of `row_len` slots
+    pushes every row's dead slots (key == dead sentinel = int32 max) to its
+    tail; keeping the first `keep_cols` columns then drops almost only dead
+    slots. Rows are STRIDED views of the flat array (element i of row r is
+    key[i * rows + r]) so each row samples splats uniformly across the
+    whole range and across bbox slots — row liveness concentrates around
+    the global live fraction even for spatially-ordered splat lists (a
+    contiguous split would let one model region saturate a row).
 
-    Returns (key_kept, val_kept, dropped): dropped counts LIVE pairs lost to
-    the cap — callers must surface it (aux) and size keep_cols so it is 0 in
-    practice (live_frac + ~6 sigma; binomial sigma = sqrt(p(1-p)L) ~ 45).
+    Returns flat (key_kept, val_kept, dropped): dropped counts LIVE pairs
+    lost to the cap — callers must surface it (aux) and size keep_cols so
+    it is 0 in practice (row live mean + ~6 binomial sigma).
     """
     s = key.shape[0]
-    if rows is None:
-        rows = -(-s // COMPACT_ROW_LEN)
+    rows = -(-s // row_len)
     row_len = -(-s // rows)
     pad = rows * row_len - s
     if pad:
@@ -115,8 +111,7 @@ def compact_pairs(key: jax.Array, val: jax.Array, dead: int, keep_cols: int,
     ks, vs = jax.lax.sort((kr, vr), dimension=1, num_keys=1, is_stable=False)
     if keep_cols >= row_len:
         # Nothing to drop; pad columns up (small scenes where the caller's
-        # keep_cols — e.g. a power of two for the pallas merge — exceeds
-        # the row length).
+        # keep_cols exceeds the row length).
         cpad = keep_cols - row_len
         dropped = jnp.int32(0)
         ks = jnp.concatenate(
@@ -126,20 +121,21 @@ def compact_pairs(key: jax.Array, val: jax.Array, dead: int, keep_cols: int,
         dropped = jnp.sum(ks[:, keep_cols:] != dead)
         ks = ks[:, :keep_cols]
         vs = vs[:, :keep_cols]
-    if alternating and rows > 1:
-        # Odd rows reversed (descending): the layout the Pallas bitonic
-        # merge tree consumes without any in-kernel reversal. Built by
-        # de-interleave/flip/re-interleave — pure data movement; an
-        # `at[1::2].set` would lower to an XLA scatter (~7.7 ns/element).
-        def alt(x):
-            x3 = x.reshape(rows // 2, 2, keep_cols)
-            return jnp.stack([x3[:, 0], x3[:, 1, ::-1]],
-                             axis=1).reshape(rows, keep_cols)
-        ks = alt(ks)
-        vs = alt(vs)
-    if flat:
-        return ks.reshape(-1), vs.reshape(-1), dropped
-    return ks, vs, dropped
+    return ks.reshape(-1), vs.reshape(-1), dropped
+
+
+def sample_blocks(x: jax.Array, stride: int, take: int) -> jax.Array:
+    """Evenly spaced contiguous-block subsample of a 1-D array: the first
+    `take` elements of every whole `stride`-element window."""
+    nb = max(1, x.shape[0] // stride)
+    return x[:nb * stride].reshape(nb, -1)[:, :take].reshape(-1)
+
+
+def apply_cutkeys(key: jax.Array, cut: jax.Array) -> jax.Array:
+    """Depth prune: keys deeper than their tile's cut (key > cut[key >> 20])
+    become DEAD; DEAD keys stay DEAD."""
+    tile = jnp.clip(key >> QUANT_DEPTH_BITS, 0, cut.shape[0] - 1)
+    return jnp.where(key <= cut[tile], key, DEAD)
 
 
 def compact_flag_ids(flag: jax.Array, blk: int = 1024, hot_cap: int = 1024,
@@ -148,8 +144,8 @@ def compact_flag_ids(flag: jax.Array, blk: int = 1024, hot_cap: int = 1024,
     two-level extraction.
 
     The big-splat tier needs {i : flag[i]} for a population of ~100-1000
-    out of 10M+; a direct compact_pairs row-sort over all N costs the
-    full 10M-slot sort (traced 2.05 ms/frame) to find 800 ids. Instead:
+    out of 10M+; a direct compact_pairs row-sort over all N costs a full
+    10M-slot sort to find them. Instead:
     (1) one cheap any() reduction over contiguous `blk`-blocks, (2) a
     tiny sort compacts the <= hot_cap flagged block ids, (3) a vmapped
     contiguous-slice gather pulls just those blocks (hot_cap * blk
@@ -211,10 +207,9 @@ def _emit_pair_slots(alive, tx0, tx1, ty0, ty1, nx, num_tiles: int,
     budget. `splat_ids` overrides the emitted splat indices (the big-splat
     tier emits for a compacted id subset).
 
-    LAYOUT: slot-major — one (N,) array per slot, concatenated. An (N, S)
-    layout puts S on the 128-lane axis and pads 32x in HBM (measured
-    250 ms of pure relayout traffic at 10M splats); (N,) component arrays
-    fuse into the projection pass and cost nothing.
+    LAYOUT: slot-major — one (N,) array per slot, concatenated. Each
+    slot's arrays are elementwise in the splat, so they fuse into the
+    projection pass.
     """
     n = alive.shape[0]
     nx_span = tx1 - tx0 + 1
@@ -225,10 +220,7 @@ def _emit_pair_slots(alive, tx0, tx1, ty0, ty1, nx, num_tiles: int,
     idx1 = (jnp.arange(n, dtype=jnp.int32) if splat_ids is None
             else splat_ids.astype(jnp.int32))
     # Walk the bbox rectangle with CARRIED (sx, sy) offsets — adds and
-    # compares only. The closed form (sy = s // nx_span) costs a vector
-    # integer division per slot: no VPU hardware divide, so XLA expands it
-    # to a long multiply/shift sequence (traced at ~4 ms per 10M-splat slot
-    # fusion = most of the 19 ms emit stage, SOL_r04).
+    # compares only, no per-slot integer division (sy = s // nx_span).
     sx = jnp.zeros_like(tx0)
     sy = jnp.zeros_like(ty0)
     tids, lives = [], []
@@ -265,9 +257,7 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
                tile_range=None, compact_keep_cols: int = 0,
                big_splat_budget: int = 0,
                big_splat_keep_cols: int = 128,
-               pallas_sort: bool = False,
-               pallas_compact: bool = False,
-               compact_row_len: int = 8192,
+               compact_row_len: int = COMPACT_ROW_LEN,
                depth_prune_cap: int = 0,
                depth_prune_safety: float = 2.0,
                head_cap: int = 0,
@@ -289,8 +279,7 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
       every tile's slice depth-ordered.
 
     * quantized_depth=True (the 10M+ fast path): skips the O(N) argsort and
-      the 14-array permutation entirely (measured ~1 s at 10M splats —
-      random-access gathers dominate). Each pair's sort key packs
+      the 14-array permutation entirely. Each pair's sort key packs
       (tile_id << 20) | top-20-bits-of-float(distance): positive-float bit
       patterns are monotone as integers, so one single-key sort yields
       tile-major, front-to-back order. Depth ties within ~6 significant
@@ -361,10 +350,8 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
             if n % 1024 == 0 and n >= 128 * 1024:
                 # Hot-block extraction (compact_flag_ids): finds the
                 # ~100-1000 wide-span splats without row-sorting all N
-                # slots (the direct compact_pairs over 10M traced
-                # 2.05 ms/frame just to locate 795 ids). Capacity =
-                # hot_cap*blk/8192*keep = 3072 ids; drops are loud
-                # (overflowed), zero in practice.
+                # slots. Capacity = hot_cap*blk/8192*keep = 3072 ids;
+                # drops are loud (overflowed), zero in practice.
                 ids, big_dropped = compact_flag_ids(is_big)
             else:
                 # Small/unpadded scenes: the direct two-level compaction
@@ -380,10 +367,8 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
             blive = ids != dead
             safe = jnp.minimum(ids, n - 1)
             # ONE stacked gather for every per-splat field the big tier
-            # needs: separate 1-D gathers cost ~25 ns per random index EACH
-            # (traced at ~4 ms x 6 fields = most of the emit stage,
-            # SOL_r04); a multi-row gather fetches all rows of an index for
-            # about the cost of one.
+            # needs: a multi-row gather fetches all rows of an index for
+            # about the cost of one 1-D gather.
             bfields = jnp.stack([tx0, tx1, ty0, ty1, dbits, span])[:, safe]
             btx0, btx1, bty0, bty1, dbits_b, span_b = bfields
             tidsb, livesb, sidxb, _ = _emit_pair_slots(
@@ -403,73 +388,28 @@ def bin_splats(proj: Projected, p00, p11, width: int, height: int,
         else:
             big_ids = None
         prune_cut = None
-        fuse_cut_into_rowsort = (depth_prune_cap and tile_range is None
-                                 and compact_keep_cols and pallas_compact
-                                 and not pallas_sort)
         if depth_prune_cap and tile_range is None:
             # Drop pairs deeper than any slab the compositor will ever
             # blend (per-tile sample-estimated threshold) BEFORE the sort:
             # at 10M splats the majority of emitted pairs are beyond the
-            # composite cap and were being sorted/gathered for nothing.
-            # On the pallas-compaction path the cut application fuses into
-            # the rowsort kernel's existing read of the slot array
-            # (ops/sort_pallas._rowsort_kernel) — the standalone
-            # apply_cutkeys pass re-read and re-wrote all 40M slots for
-            # ~2.8 ms at the 10M bench.
+            # composite cap and would be sorted and gathered for nothing.
             with jax.named_scope("depth_prune"):
                 prune_cut = depth_prune_cutkeys(key, num_tiles,
                                                 depth_prune_cap,
                                                 safety=depth_prune_safety)
-                if not fuse_cut_into_rowsort:
-                    from fourdgs.ops.lookup_pallas import apply_cutkeys
-                    key = apply_cutkeys(key, prune_cut)
+                key = apply_cutkeys(key, prune_cut)
         compact_dropped = None
-        if compact_keep_cols and pallas_sort:
-            # Pallas path: compact into a power-of-two (rows x keep_cols)
-            # grid whose rows merge with zero padding, then stitch the
-            # sorted rows with the VMEM bitonic merge tree — replaces the
-            # global lax.sort (measured 2.6 -> 1.6 ns/element on v5e).
-            from fourdgs.ops.sort_pallas import merge_sorted_rows
-            assert (compact_keep_cols & (compact_keep_cols - 1)) == 0, \
-                f"pallas_sort needs power-of-two keep_cols, got {compact_keep_cols}"
-            s_slots = key.shape[0]
-            # Nearest power-of-two row count at ~COMPACT_ROW_LEN row length:
-            # pow2 rows x pow2 keep_cols merge with zero padding.
-            rows = 1 << max(0, int(round(np.log2(
-                max(1.0, s_slots / COMPACT_ROW_LEN)))))
-            k2, v2, compact_dropped = compact_pairs(
-                key, splat_idx, dead, compact_keep_cols, rows=rows,
-                alternating=True, flat=False)
-            key_s, splat_s = merge_sorted_rows(
-                k2, v2, rows_alternating=True,
-                interpret=jax.default_backend() != "tpu")
-        else:
-            if compact_keep_cols and pallas_compact:
-                # Pallas rowsort+keep (ops/sort_pallas.rowsort_compact):
-                # sorts the strided logical rows along sublanes in VMEM —
-                # no transpose, compaction fused into the output slice
-                # (measured 26 ms vs the XLA formulation's 32 ms at 40.9M
-                # slots). Output order across rows is irrelevant: the
-                # global sort below re-orders everything.
-                from fourdgs.ops.sort_pallas import rowsort_compact
-                with jax.named_scope("rowsort_compact"):
-                    ck, cv, compact_dropped = rowsort_compact(
-                        key, splat_idx, compact_keep_cols,
-                        row_len=compact_row_len,
-                        cut=(prune_cut if fuse_cut_into_rowsort
-                             else None),
-                        key_shift=QUANT_DEPTH_BITS)
-                    key, splat_idx = ck.reshape(-1), cv.reshape(-1)
-            elif compact_keep_cols:
+        if compact_keep_cols:
+            with jax.named_scope("compact"):
                 key, splat_idx, compact_dropped = compact_pairs(
-                    key, splat_idx, dead, compact_keep_cols)
-            # Unstable: ties within a (tile, 20-bit depth) bucket order
-            # arbitrarily — the reference's radix sort breaks exact ties
-            # arbitrarily too. Stability costs ~35% of the sort at 40M
-            # pairs.
-            with jax.named_scope("global_sort"):
-                key_s, splat_s = jax.lax.sort((key, splat_idx), num_keys=1,
-                                              is_stable=False)
+                    key, splat_idx, dead, compact_keep_cols,
+                    row_len=compact_row_len)
+        # Unstable: ties within a (tile, 20-bit depth) bucket order
+        # arbitrarily — the reference's radix sort breaks exact ties
+        # arbitrarily too.
+        with jax.named_scope("global_sort"):
+            key_s, splat_s = jax.lax.sort((key, splat_idx), num_keys=1,
+                                          is_stable=False)
         tid_s = jnp.where(key_s == dead, num_tiles,
                           key_s >> QUANT_DEPTH_BITS)
         if tile_range is not None:
@@ -584,24 +524,17 @@ def depth_prune_cutkeys(key: jax.Array, num_tiles: int, cap: int,
     # spatially-sorted (Morton) splat lists each block is ONE locality,
     # and a tile's cut estimate rests on the few blocks covering it: the
     # estimator's variance is LOCALITY-count-bound, not sample-count-
-    # bound (measured round 5: a mere phase shift of a 1024-wide block
-    # grid swung total kept volume 15%, enough to breach the compaction
-    # keep margin; 256-wide blocks at the same sample volume carry 4x
-    # the localities). Small blocks are affordable only through the
-    # pipelined pallas sampler — every XLA formulation of strided block
-    # extraction is latency-bound at ~1 us per block (see
-    # ops/lookup_pallas.sample_blocks). `prune_underkeep` verifies the
-    # outcome either way.
+    # bound (a phase shift of a 1024-wide block grid swung the total kept
+    # volume 15%, enough to breach the compaction keep margin; 256-wide
+    # blocks at the same sample volume carry 4x the localities).
+    # `prune_underkeep` verifies the outcome either way.
     blk = 256
-    take_rows = blk // 128
-    if key.shape[0] < stride * blk * 128 or key.shape[0] % 128:
+    if key.shape[0] < stride * blk * 128:
         # Small arrays: the strided gather is cheap and mixes better than
         # a handful of blocks would.
         sample = key[::stride]
     else:
-        from fourdgs.ops.lookup_pallas import sample_blocks
-        sample, = sample_blocks([key], stride_rows=stride * take_rows,
-                                take_rows=take_rows)
+        sample = sample_blocks(key, stride=stride * blk, take=blk)
     ss = jax.lax.sort(sample, is_stable=False)
     tile_ids = jnp.arange(num_tiles + 1, dtype=jnp.int32)
     start = searchsorted_i32(ss, tile_ids << QUANT_DEPTH_BITS)   # (T+1,)
@@ -613,11 +546,9 @@ def depth_prune_cutkeys(key: jax.Array, num_tiles: int, cap: int,
 
 
 def searchsorted_i32(sorted_arr: jax.Array, queries: jax.Array) -> jax.Array:
-    """Left-bisect positions of `queries` in 1-D `sorted_arr`, int32.
-
-    jnp.searchsorted lowers to a full co-sort of keys and queries on TPU
-    (measured ~12 ms against a 40M array for 2K queries); an explicit
-    binary search is log2(P) tiny gathers instead (microseconds)."""
+    """Left-bisect positions of `queries` in 1-D `sorted_arr`, int32: an
+    explicit binary search of log2(P) tiny gathers, independent of how
+    the backend lowers jnp.searchsorted."""
     p = sorted_arr.shape[0]
     lo = jnp.zeros(queries.shape, jnp.int32)
     hi = jnp.full(queries.shape, p, jnp.int32)

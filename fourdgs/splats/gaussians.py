@@ -1,6 +1,6 @@
 """Gaussian splat parameterizations: covariance builders and 4D time slicing.
 
-This is the TPU-native re-design of the host-side math in the reference's
+This is the re-design of the host-side math in the reference's
 `Splat.h` (classes Splat2D :559-653, Splat3D :331-556, Splat4D :85-329 and
 SplatUtils :31-83). Instead of per-splat C++ objects, splats are
 structure-of-array pytrees and every builder is a batched, differentiable jnp

@@ -1,11 +1,10 @@
 """Scalar structure-of-arrays splat math for the 10M+ regime.
 
-Why this exists: on TPU, XLA lowers tiny-matrix einsums over huge batches
-(e.g. R S S R^T for 10M splats) to dot/conv ops whose operands get padded
-tile layouts — an f32[10M,3,3] intermediate literally allocates 20 GB
-(measured; each 3x3 becomes a (4,128) tile). The scalable representation is
-one 1-D (N,) array per scalar component: everything is elementwise, XLA
-fuses the whole chain, and nothing padded ever hits HBM.
+Why this exists: tiny-matrix einsums over huge batches (e.g. R S S R^T for
+10M splats) lower to dot ops over (N, 3, 3) operands with strided layouts.
+The scalable representation is one 1-D (N,) array per scalar component:
+everything is elementwise, XLA fuses the whole chain, and no (N, k, k)
+intermediate ever reaches device memory.
 
 This module mirrors the math of splats/gaussians.py (same reference
 citations) in component form and is property-tested against it. Symmetric
@@ -131,11 +130,12 @@ def morton_order(params: Dict[str, jax.Array], bits: int = 10):
 
     Spatially adjacent splats become adjacent in memory, which gives the
     streaming banded-OIT tail compositor (ops/tail_pallas.py) screen-tile
-    locality for ANY camera: its per-chunk tile windows then cover each
-    chunk with ~1 pass (measured 49 ms vs 562 ms for random order at the
-    10M bench). Rendering is correct for any order; this is purely a
-    performance layout. Long-running fits that drift positions can re-run
-    it between jitted phases (it changes no values, only order).
+    locality for ANY camera: the splats of one kernel program then add
+    into a few neighbouring accumulator rows, and each chunk of splats
+    takes one depth band that fits it. Rendering is correct for any
+    order; this is purely a performance layout. Long-running fits that
+    drift positions can re-run it between jitted phases (it changes no
+    values, only order).
     """
     px, py, pz = params["px"], params["py"], params["pz"]
 
@@ -164,9 +164,8 @@ def pad_packed_params(params: Dict[str, jax.Array], multiple: int = 2048):
     multiple — a ONE-TIME scene-build step.
 
     Why: every in-frame `jnp.pad` of a (N,) field to the tail kernel's
-    chunk multiple is a full-array copy (XLA pad writes a fresh array);
-    at the 10M bench the frame paid ~17 pad/update-slice ops (~4 ms) to
-    pad derived fields by 384 elements. Padding the SCENE once makes
+    chunk multiple is a full-array copy (XLA pad writes a fresh array),
+    and a frame pads many derived fields. Padding the SCENE once makes
     every derived field already chunk-aligned, so those pads become
     no-ops. Pad splats have opacity 0 (ca=0: a_eff == 0 -> alpha == 0
     everywhere) and epsilon scales; they may emit a handful of zero-alpha

@@ -2,7 +2,7 @@
 
 Capability extension beyond the reference (it has no trainer at all —
 SURVEY.md section 4/5): the 3D-Gaussian-splatting-style densification loop
-adapted to the 4D motion parameterization and to TPU constraints. Everything
+adapted to the 4D motion parameterization and to static shapes. Everything
 is static-shape: the splat count never changes inside jit. Instead, the
 parameter pytree has a fixed capacity; pruning *frees* slots (alpha -> 0) and
 densification *fills* freed slots with clones/splits of the

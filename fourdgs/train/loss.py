@@ -1,7 +1,7 @@
 """Losses for differentiable splat rendering.
 
 The reference has no training at all (SURVEY.md section 0: forward-only
-viewer); this subsystem is the capability the TPU build adds. Photometric L2
+viewer); this subsystem is the capability this build adds. Photometric L2
 plus a lightweight SSIM (the standard 3DGS recipe is L1 + 0.2*(1-SSIM);
 we expose the pieces and a combined helper).
 """

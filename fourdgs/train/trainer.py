@@ -4,7 +4,7 @@ Complements fourdgs/parallel/distributed.py (the multi-chip step): this is
 the simple path — one device (or jit-auto-sharded), camera/time batches via
 scan. The reference has no checkpoint/resume at all (SURVEY.md section 5 —
 scene reset is unload()+init()); here parameter pytrees round-trip through
-orbax or a plain npz fallback.
+a plain npz file.
 """
 
 from __future__ import annotations
@@ -167,28 +167,15 @@ def fit(params: Dict[str, jax.Array],
 
 def save_checkpoint(path: str, params: Dict[str, jax.Array],
                     step: Optional[int] = None) -> None:
-    """Save a parameter pytree. Uses orbax when importable, else npz."""
-    try:
-        import orbax.checkpoint as ocp
-        ckpt = ocp.StandardCheckpointer()
-        ckpt.save(os.path.abspath(path),
-                  jax.tree_util.tree_map(np.asarray, params), force=True)
-        ckpt.wait_until_finished()
-        return
-    except Exception:
-        pass
+    """Save a flat parameter dict to `path` (".npz" appended if missing)."""
     np.savez(path if path.endswith(".npz") else path + ".npz",
              **{k: np.asarray(v) for k, v in params.items()},
              __step__=np.asarray(-1 if step is None else step))
 
 
 def load_checkpoint(path: str) -> Dict[str, jax.Array]:
+    """Load a parameter dict written by save_checkpoint."""
     npz = path if path.endswith(".npz") else path + ".npz"
-    if os.path.exists(npz):
-        data = np.load(npz)
+    with np.load(npz) as data:
         return {k: jnp.asarray(v) for k, v in data.items()
                 if not k.startswith("__")}
-    import orbax.checkpoint as ocp
-    ckpt = ocp.StandardCheckpointer()
-    restored = ckpt.restore(os.path.abspath(path))
-    return {k: jnp.asarray(v) for k, v in restored.items()}

@@ -1,4 +1,4 @@
-"""Small shared helpers — the TPU-side analog of the reference's Utils
+"""Small shared helpers — the analog of the reference's Utils
 (Utils.{h,cpp}: minf/maxf/lerp/mapf, Utils.cpp:115-133, plus matrix/vector
 printers used for debugging)."""
 

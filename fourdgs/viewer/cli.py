@@ -110,6 +110,8 @@ def apply_overrides(splats, sets, index):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    from fourdgs.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     import jax
     if args.cpu:

@@ -1,6 +1,6 @@
 // fourdgs native IO: fast whitespace-float tokenizer for .vdata/.sd assets.
 //
-// TPU-native counterpart of the reference's host-side asset loaders
+// Counterpart of the reference's host-side asset loaders
 // (VDataParser.h:25-125). The reference tokenizes with std::istringstream
 // word-by-word — fine for a 3,644-splat teapot, far too slow for the
 // 10M-splat batch scenes this framework targets. This loader mmap-free

@@ -208,26 +208,3 @@ class TestTightBBox:
         assert bool(jnp.all(hy <= qy + 1e-7))
         # and strictly tighter for a decent share of rotated splats
         assert float(jnp.mean((hx < qx * 0.999))) > 0.2
-
-
-class TestRowsortFusedCut:
-    def test_fused_cut_matches_two_pass(self):
-        from fourdgs.ops.lookup_pallas import apply_cutkeys
-        from fourdgs.ops.sort_pallas import rowsort_compact
-        rng = np.random.default_rng(11)
-        T, S = 48, 32 * 1024
-        tid = rng.integers(0, T, S)
-        db = rng.integers(0, 1 << 20, S)
-        key = ((tid << 20) | db).astype(np.int32)
-        key[rng.random(S) < 0.5] = np.iinfo(np.int32).max
-        cut = ((np.arange(T) << 20)
-               | rng.integers(0, 1 << 20, T)).astype(np.int32)
-        k, c = jnp.asarray(key), jnp.asarray(cut)
-        idx = jnp.arange(S, dtype=jnp.int32)
-        ok1, _, d1 = rowsort_compact(apply_cutkeys(k, c), idx, 64,
-                                     row_len=512)
-        ok2, _, d2 = rowsort_compact(k, idx, 64, row_len=512, cut=c)
-        np.testing.assert_array_equal(
-            np.sort(np.asarray(ok1).ravel()),
-            np.sort(np.asarray(ok2).ravel()))
-        assert int(d1) == int(d2)

@@ -1,5 +1,5 @@
 """Golden-image regression tests: every demo scene is pinned to a stored
-reference PNG (the TPU-build analog of the reference repo's Screenshots/
+reference PNG (the analog of the reference repo's Screenshots/
 directory as recorded expected outputs — SURVEY.md section 4.2).
 
 Goldens are rendered by the DENSE renderer (render/dense.py), the declared

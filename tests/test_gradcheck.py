@@ -8,8 +8,8 @@ for both the XLA compositor and the Pallas kernel (interpret mode on CPU).
 
 Run in float64 (x64 enabled locally) so FD truncation error (~h^2 = 1e-12)
 is far below the tolerance: a shared analytic error in any VJP — e.g. the
-hand-written backward compositor's suffix-sum identity — cannot hide behind
-self-consistency tests.
+hand-written backward compositor's back-to-front cotangents — cannot hide
+behind self-consistency tests.
 
 The forward is differentiable almost everywhere; the measure-zero seams
 (quad-coverage clip at |n| = 0.5, the 1e-4 fragment discard, depth-order
@@ -113,7 +113,7 @@ class TestGradcheckXLA:
 class TestGradcheckPallas:
     def test_all_parameter_classes(self):
         # Interpret-mode kernel (CPU test env); f64 end to end, exercising
-        # the hand-written backward kernel's suffix-sum cotangents.
+        # the hand-written backward kernel's back-to-front cotangents.
         cfg = RenderConfig(tile_h=8, tile_w=128, backend="pallas",
                            max_splats_per_tile=128, max_tiles_per_splat=16)
         _check_all_fields(cfg)

@@ -3,7 +3,7 @@ virtual CPU devices run the all_to_all sharded train step through
 `jax.distributed` and must produce the single-process loss.
 
 This is the missing piece between "single-process multi-device" (everything
-in tests/test_parallel.py) and a real multi-host TPU pod: the same mesh
+in tests/test_parallel.py) and a real multi-host cluster: the same mesh
 axes, but device meshes spanning processes, global arrays assembled from
 process-local shards, and the JAX coordination service standing in for the
 reference's (nonexistent) distributed runtime."""

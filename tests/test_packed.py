@@ -1,6 +1,6 @@
 """Parity: the packed scalar-SoA path (splats/packed.py +
 render_params4d_packed) must agree with the matrix-form golden path — same
-math, different (TPU-scalable) layout."""
+math, different (scalable) layout."""
 
 import jax
 import jax.numpy as jnp
@@ -96,38 +96,15 @@ if __name__ == "__main__":
 
 
 class TestPackRowsKernel:
-    """Unit coverage for ops/pack_pallas (ADVICE r4: the custom VJP had no
-    test — pack_rows bypasses _pack_core off-TPU, and the only TPU gate
-    exercising it was forward-only)."""
+    """The record layout the kernels read: record_fields' padded (10, Np)
+    matrix and pack_records' per-tile gather, forward and VJP."""
 
-    def _views(self, key, r=4, pad_to=2048):
-        rows = [jax.random.normal(jax.random.fold_in(key, i), (pad_to,))
-                for i in range(r)]
-        return tuple(v.reshape(pad_to // 128, 128) for v in rows), rows
-
-    def test_pack_core_fwd_matches_stack(self):
-        from fourdgs.ops.pack_pallas import _blk_for, _pack_core
-        views, rows = self._views(jax.random.PRNGKey(0))
-        out = _pack_core(views, _blk_for(2048), True)
-        np.testing.assert_allclose(np.asarray(out),
-                                   np.asarray(jnp.stack(rows)))
-
-    def test_pack_core_bwd_matches_stack_vjp(self):
-        from fourdgs.ops.pack_pallas import _blk_for, _pack_core
-        views, _ = self._views(jax.random.PRNGKey(1))
-        cot = jax.random.normal(jax.random.PRNGKey(2), (4, 2048))
-
-        def via_kernel(vs):
-            return jnp.sum(_pack_core(vs, _blk_for(2048), True) * cot)
-
-        def via_stack(vs):
-            return jnp.sum(jnp.stack([v.reshape(-1) for v in vs]) * cot)
-
-        g_k = jax.grad(via_kernel)(views)
-        g_s = jax.grad(via_stack)(views)
-        for a, b in zip(g_k, g_s):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-6)
+    def _proj(self, comps):
+        from types import SimpleNamespace
+        mx, my, v0x, v0y, l0, l1, r, g, b, a_eff = comps
+        return SimpleNamespace(mx=mx, my=my, v0x=v0x, v0y=v0y, l0=l0, l1=l1,
+                               r=r, g=g, b=b, opacity=a_eff, a=1.0,
+                               valid=jnp.ones_like(mx, bool))
 
     def _rec_inputs(self, key, n=1900, pad_to=2048):
         ks = jax.random.split(key, 10)
@@ -142,28 +119,66 @@ class TestPackRowsKernel:
         return jnp.stack([jnp.pad(x, (0, pad_to - x.shape[0]))
                           for x in rows])
 
-    def test_pack_record_fields_fwd(self):
-        from fourdgs.ops.pack_pallas import pack_record_fields
-        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(3))
-        out = pack_record_fields(*comps, p00, p11, 2048, interpret=True)
-        want = self._rec_jnp(comps, p00, p11, 2048)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(want),
-                                   rtol=1e-6)
+    def test_pack_core_fwd_matches_stack(self):
+        from fourdgs.ops.composite_pallas import record_fields
+        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(0))
+        out = record_fields(self._proj(comps), p00, p11, pad_to=2048)
+        np.testing.assert_allclose(
+            np.asarray(out), np.asarray(self._rec_jnp(comps, p00, p11, 2048)),
+            rtol=1e-6)
 
-    def test_pack_record_fields_bwd(self):
-        from fourdgs.ops.pack_pallas import pack_record_fields
-        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(4))
-        cot = jax.random.normal(jax.random.PRNGKey(5), (10, 2048))
+    def test_pack_core_bwd_matches_stack_vjp(self):
+        from fourdgs.ops.composite_pallas import record_fields
+        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(1))
+        cot = jax.random.normal(jax.random.PRNGKey(2), (10, 2048))
 
-        def via_kernel(cs):
-            return jnp.sum(pack_record_fields(*cs, p00, p11, 2048,
-                                              interpret=True) * cot)
+        def via_fields(cs):
+            return jnp.sum(record_fields(self._proj(cs), p00, p11,
+                                         pad_to=2048) * cot)
 
-        def via_jnp(cs):
+        def via_stack(cs):
             return jnp.sum(self._rec_jnp(cs, p00, p11, 2048) * cot)
 
-        g_k = jax.grad(via_kernel)(tuple(comps))
-        g_j = jax.grad(via_jnp)(tuple(comps))
-        for a, b in zip(g_k, g_j):
+        g_f = jax.grad(via_fields)(tuple(comps))
+        g_s = jax.grad(via_stack)(tuple(comps))
+        for a, b in zip(g_f, g_s):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=1e-5, atol=1e-6)
+
+    def test_pack_record_fields_fwd(self):
+        # Unpadded and padded layouts agree; pad columns are zero; a pad
+        # width below N leaves the matrix as it is.
+        from fourdgs.ops.composite_pallas import record_fields
+        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(3))
+        proj = self._proj(comps)
+        plain = np.asarray(record_fields(proj, p00, p11))
+        padded = np.asarray(record_fields(proj, p00, p11, pad_to=2048))
+        assert plain.shape == (10, 1900) and padded.shape == (10, 2048)
+        np.testing.assert_array_equal(padded[:, :1900], plain)
+        assert not padded[:, 1900:].any()
+        np.testing.assert_array_equal(
+            np.asarray(record_fields(proj, p00, p11, pad_to=1024)), plain)
+
+    def test_pack_record_fields_bwd(self):
+        # pack_records' per-tile gather (T, F, M) with dead entries' a_eff
+        # zeroed, and its VJP (a scatter-add back onto the records).
+        from fourdgs.ops.composite_pallas import (N_FIELDS, pack_records,
+                                                  record_fields)
+        comps, p00, p11 = self._rec_inputs(jax.random.PRNGKey(4))
+        rng = np.random.default_rng(6)
+        tile_splat = jnp.asarray(rng.integers(0, 1900, (5, 64)), jnp.int32)
+        tile_live = jnp.asarray(rng.random((5, 64)) < 0.7)
+        rec = record_fields(self._proj(comps), p00, p11)
+        got = pack_records(None, tile_splat, tile_live, p00, p11, rec=rec)
+        want = np.asarray(rec)[:, np.asarray(tile_splat)].transpose(1, 0, 2)
+        want[:, N_FIELDS - 1] *= np.asarray(tile_live)
+        np.testing.assert_array_equal(np.asarray(got), want)
+        cot = jax.random.normal(jax.random.PRNGKey(5), got.shape)
+        g = jax.grad(lambda r: jnp.sum(pack_records(
+            None, tile_splat, tile_live, p00, p11, rec=r) * cot))(rec)
+        mask = jnp.ones_like(got).at[:, N_FIELDS - 1].multiply(
+            tile_live.astype(got.dtype))
+        g_want = jnp.zeros_like(rec).at[:, tile_splat].add(
+            (cot * mask).transpose(1, 0, 2))
+        np.testing.assert_allclose(np.asarray(g), np.asarray(g_want),
+                                   rtol=1e-6, atol=1e-6)

@@ -54,19 +54,18 @@ def _dense_image(params, camera, t=0.0):
 @pytest.mark.slow
 def test_bench_stack_matches_dense():
     """The exact bench.py feature stack (quantized sort + compaction +
-    two-tier emission + pallas deepening compositor) vs the dense model."""
+    two-tier emission + slab deepening compositor) vs the dense model."""
     from fourdgs.render.pipeline import RenderConfig, render_params4d_packed
 
     params = _cube_scene()
     camera = _camera()
     # Mirrors the SHIPPED bench.py stack: quantized sort, two-tier
-    # emission, depth pruning, pallas rowsort compaction, one big
+    # emission, depth pruning, row-sort compaction, one big
     # deepening slab (scaled to the test scene).
     cfg = RenderConfig(tile_h=8, tile_w=128, backend="pallas",
                        max_splats_per_tile=512, max_tiles_per_splat=4,
                        splat_chunk=128, quantized_depth_sort=True,
-                       sort_compact_keep_cols=256, compact_backend="pallas",
-                       compact_row_len=512,
+                       sort_compact_keep_cols=256, compact_row_len=512,
                        big_splat_budget=16, big_splat_keep_cols=128,
                        deepening_passes=2, deepening_fraction=1.0,
                        deepening_schedule=(1536,),

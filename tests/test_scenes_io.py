@@ -150,9 +150,8 @@ class TestIO:
 
 
 class TestPallasInterpret:
-    """The Pallas compositor runs interpreted off-TPU with identical
-    semantics; boundary-rounding differences only appear on real hardware
-    (documented in ops/composite_pallas.py)."""
+    """The Triton compositor runs in the Pallas interpreter on the CPU with
+    the semantics it has compiled on the GPU."""
 
     def test_matches_dense(self):
         key = jax.random.PRNGKey(7)
@@ -212,13 +211,13 @@ class TestPallasBackwardKernel:
         identical gated records (interpret mode)."""
         import jax
         import jax.numpy as jnp
-        from fourdgs.ops.composite_pallas import (_F, _C_AEFF,
+        from fourdgs.ops.composite_pallas import (N_FIELDS, _C_AEFF,
                                                   _xla_composite_from_records,
                                                   composite_records,
                                                   identity_carry)
         t_tiles, m, p = 2, 256, 1024
         ks = jax.random.split(jax.random.PRNGKey(0), 9)
-        rec = jnp.zeros((t_tiles, _F, m))
+        rec = jnp.zeros((t_tiles, N_FIELDS, m))
         rec = rec.at[:, 0, :].set(jax.random.uniform(ks[0], (t_tiles, m), minval=-0.3, maxval=0.3))
         rec = rec.at[:, 1, :].set(jax.random.uniform(ks[1], (t_tiles, m), minval=-0.3, maxval=0.3))
         ang = jax.random.uniform(ks[2], (t_tiles, m)) * 6.28

@@ -1,4 +1,4 @@
-"""Tests for the 1D/2D/3D simplex noise utilities (the TPU-native analog of
+"""Tests for the 1D/2D/3D simplex noise utilities (the analog of
 the vendored SimplexNoise dependency, Dependencies/SIMPLEX_NOISE/
 SimplexNoise.cpp — unused by reference app code but shipped; SURVEY.md
 section 2.1 #21)."""

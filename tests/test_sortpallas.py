@@ -1,70 +1,31 @@
-"""Pallas pair-sort stack: bitonic merge tree, cut-key pruning, and their
-pipeline integration (interpret mode on CPU). Compiled execution is
-certified on-chip by `validate_kernels.py::check_sort` (run alongside
-bench.py; results in KERNELCHECK.json) — the TPU analog of the reference's
-GPU sort self-checks (resources/sort_test_*.comp.glsl, SURVEY.md §4.1)."""
+"""Pair-sort plumbing: the depth-prune cut-key lookup and its pipeline
+integration (CPU). The GPU sorts with XLA's own lax.sort."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fourdgs.ops.sort_pallas import DEAD, merge_sorted_rows
-
-
-def _random_rows(rng, r, c, live_frac):
-    keys = rng.integers(0, (1 << 31) - 2, size=r * c, dtype=np.int32)
-    dead_idx = rng.choice(r * c, r * c - int(r * c * live_frac),
-                          replace=False)
-    keys[dead_idx] = DEAD
-    vals = rng.integers(0, 1 << 24, size=r * c, dtype=np.int32)
-    k2 = np.sort(keys.reshape(r, c), axis=1)
-    order = np.argsort(keys.reshape(r, c), axis=1, kind="stable")
-    v2 = np.take_along_axis(vals.reshape(r, c), order, axis=1)
-    return keys, vals, k2, v2
-
-
-@pytest.mark.parametrize("r,c,alternating", [
-    (4, 256, False), (9, 256, False), (16, 512, True), (40, 256, False)])
-def test_merge_sorted_rows(r, c, alternating):
-    rng = np.random.default_rng(r * 1000 + c)
-    keys, vals, k2, v2 = _random_rows(rng, r, c, live_frac=0.6)
-    if alternating:
-        k2[1::2] = k2[1::2, ::-1]
-        v2[1::2] = v2[1::2, ::-1]
-    ks, vs = merge_sorted_rows(jnp.asarray(k2), jnp.asarray(v2),
-                               rows_alternating=alternating, interpret=True)
-    ks, vs = np.asarray(ks), np.asarray(vs)
-    want = np.sort(keys)
-    assert np.array_equal(ks[:len(want)], want)
-    assert np.all(ks[len(want):] == DEAD)
-    # kv pairing preserved for live elements.
-    live = ks != DEAD
-    got = np.sort(ks[live].astype(np.int64) << 24 | vs[live])
-    wl = keys != DEAD
-    exp = np.sort(keys[wl].astype(np.int64) << 24 | vals[wl])
-    assert np.array_equal(got, exp)
+DEAD = np.iinfo(np.int32).max
 
 
 def test_apply_cutkeys_matches_numpy():
-    from fourdgs.ops.lookup_pallas import apply_cutkeys
+    from fourdgs.render.tiles import apply_cutkeys
     rng = np.random.default_rng(7)
     t = 300
-    s = 256 * 128 * 2 + 777           # exercises the ragged tail
+    s = 256 * 128 * 2 + 777
     cut = rng.integers(0, 1 << 29, t, dtype=np.int32)
     tile = rng.integers(0, t, s, dtype=np.int32)
     key = (tile.astype(np.int64) << 20 | rng.integers(0, 1 << 20, s)
            ).astype(np.int32)
     key[rng.choice(s, s // 5, replace=False)] = DEAD
-    got = np.asarray(apply_cutkeys(jnp.asarray(key), jnp.asarray(cut),
-                                   interpret=True))
+    got = np.asarray(apply_cutkeys(jnp.asarray(key), jnp.asarray(cut)))
     safe_tile = np.clip(key >> 20, 0, t - 1)
     want = np.where(key == DEAD, DEAD,
                     np.where(key <= cut[safe_tile], key, DEAD))
     assert np.array_equal(got, want)
 
 
-def _bench_like_cfgs(sort_backend, prune_cap=0, keep=512):
+def _bench_like_cfgs(prune_cap=0, keep=512):
     from fourdgs.render.pipeline import RenderConfig
     return RenderConfig(tile_h=8, tile_w=128, backend="pallas",
                         max_splats_per_tile=256, max_tiles_per_splat=4,
@@ -72,7 +33,6 @@ def _bench_like_cfgs(sort_backend, prune_cap=0, keep=512):
                         sort_compact_keep_cols=keep,
                         big_splat_budget=16, big_splat_keep_cols=128,
                         deepening_passes=3, deepening_fraction=1.0,
-                        sort_backend=sort_backend,
                         depth_prune_cap=prune_cap)
 
 
@@ -93,30 +53,12 @@ def _scene(n=4000):
 
 
 @pytest.mark.slow
-def test_pipeline_pallas_sort_matches_xla_sort():
-    params, camera = _scene()
-    img_x, aux_x = _render(params, camera, _bench_like_cfgs("xla", keep=4096))
-    img_p, aux_p = _render(params, camera,
-                           _bench_like_cfgs("pallas", keep=4096))
-    assert int(aux_x["compact_dropped"]) == 0
-    assert int(aux_p["compact_dropped"]) == 0
-    # Same live pair set and per-tile counts; image identical up to
-    # quantized-depth tie order (pairs sharing a 20-bit depth bucket order
-    # arbitrarily under either unstable sort — a handful of pixels at the
-    # 1e-4 level).
-    assert int(aux_p["live_pairs"]) == int(aux_x["live_pairs"])
-    np.testing.assert_allclose(np.asarray(img_p), np.asarray(img_x),
-                               atol=1e-3)
-
-
-@pytest.mark.slow
 def test_pipeline_depth_prune_keeps_image():
     params, camera = _scene(n=8000)
     cap = 256 * 3
-    img0, aux0 = _render(params, camera, _bench_like_cfgs("xla", keep=4096))
+    img0, aux0 = _render(params, camera, _bench_like_cfgs(keep=4096))
     img1, aux1 = _render(params, camera,
-                         _bench_like_cfgs("pallas", prune_cap=cap,
-                                          keep=4096))
+                         _bench_like_cfgs(prune_cap=cap, keep=4096))
     assert int(aux1["prune_underkeep"]) == 0
     assert int(aux1["compact_dropped"]) == 0
     assert int(aux1["live_pairs"]) <= int(aux0["live_pairs"])
